@@ -17,9 +17,15 @@ printing a result line:
      every shape phase 3 met, bf16 inputs, the plain version in float32 from
      the same bf16 tensors; kernel, plain, library (one PyTorch call, used
      nowhere in the port) and bound times;
-  5. card against CPU: the same port at published widths, 128^2 x 3, B=1,
+  5. conv probe: the port's conv probe (scripts/perf_probe_conv.py) over
+     stages A, B and C with the launch counters set to 0 (K3 must have
+     launched as often as the probe called it, K1 and K2 never); then K3 at
+     each stage and tile against its plain version in float32 from the same
+     bf16 tensors, and the plain version's time (kernel and library times
+     are the probe's);
+  6. card against CPU: the same port at published widths, 128^2 x 3, B=1,
      DDIM-5, float32 (TF32 off), from the same weights and noise;
-  6. the kernel table as one JSON line, then the result line.
+  7. the kernel table as one JSON line, then the result line.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -45,9 +51,12 @@ F32_FLOPS = 67e12
 # K1 rounds its float32 result to bf16 once (half an ulp is 2^-9); K2 rounds
 # qkv, P, the attention output and the projection to bf16 along the way.
 # Each limit is about twice the largest reading this script and
-# tests/test_torch_cuda.py give on an H100
+# tests/test_torch_cuda.py give on an H100. K3 rounds its float32 sum to bf16
+# once: half an ulp is 2^-9 to 2^-8 of a value, so at most 2^-8 of the
+# largest magnitude; the order of the float32 sums adds far less
 K1_TOL = 2.0 ** -7
 K2_TOL = 1.3e-2
+K3_TOL = 2.0 ** -8
 CARD_VS_CPU_TOL = 1e-3  # float32, sums in another order on each side
 
 B, S, HW, STEPS = 2, 11, 256, 50
@@ -167,6 +176,7 @@ def expected_calls(pred, steps):
 
 def phase_slice() -> dict:
     from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
+    from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
     from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 
     dev = torch.device("cuda")
@@ -183,14 +193,15 @@ def phase_slice() -> dict:
         h.remove()
 
     exp_gn, exp_attn = expected_calls(pred, STEPS)
-    k1.LAUNCHES = k2.LAUNCHES = 0
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
     out = pred.predict_ddim(img, vel, num_steps=STEPS, noise=noise)
     torch.cuda.synchronize()
     launches = {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES}
-    log(f"[slice] launches in one predict_ddim({STEPS}) at B={B}: {launches} "
-        f"(expected groupnorm_act {exp_gn}, fused_attention {exp_attn})")
-    if launches != {"groupnorm_act": exp_gn, "fused_attention": exp_attn}:
-        raise RuntimeError(f"main path did not go through the kernels as expected: {launches}")
+    log(f"[slice] launches in one predict_ddim({STEPS}) at B={B}: {launches}, conv3x3 "
+        f"{k3.LAUNCHES} (expected groupnorm_act {exp_gn}, fused_attention {exp_attn}, conv3x3 0)")
+    if launches != {"groupnorm_act": exp_gn, "fused_attention": exp_attn} or k3.LAUNCHES:
+        raise RuntimeError(f"main path did not go through the kernels as expected: {launches}, "
+                           f"conv3x3 {k3.LAUNCHES}")
     if tuple(out.shape) != (B, S, 3, HW, HW) or not torch.isfinite(out).all():
         raise RuntimeError(f"bad output: shape {tuple(out.shape)}, "
                            f"finite {bool(torch.isfinite(out).all())}")
@@ -340,6 +351,62 @@ def phase_kernels(shapes: dict, launches: dict) -> list:
     return rows
 
 
+def phase_conv_probe() -> tuple:
+    """The conv probe's path, counted; then K3 against its plain version."""
+    from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
+    from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
+    from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
+    from diffusion_model_project_tpu_torch.scripts import perf_probe_conv as probe
+
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+    probed = probe.main(list(probe.STAGES))
+    launches = {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES,
+                "conv3x3": k3.LAUNCHES}
+    expected = sum(r["calls"] for r in probed if r["candidate"].startswith("k3["))
+    log(f"[conv probe] launches in one probe over stages {', '.join(probe.STAGES)}: "
+        f"{launches} (expected conv3x3 {expected}, the others 0)")
+    if not expected or launches != {"groupnorm_act": 0, "fused_attention": 0,
+                                    "conv3x3": expected}:
+        raise RuntimeError(f"the conv probe did not go through K3 as expected: {launches}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full float32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for stage, shape in probe.STAGES.items():
+        n, h, w, cin, cout = shape
+        x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(torch.bfloat16)
+        wgt = (0.05 * torch.randn((3, 3, cin, cout), generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        ref = k3.conv3x3_plain(x.float(), wgt.float())
+        scale = ref.abs().max().item()
+        by_tile = {r["candidate"]: r for r in probed if r["stage"] == stage}
+        tiles = {}
+        for th, tw in k3.TILES:
+            err = (k3.conv3x3(x, wgt, (th, tw)).float() - ref).abs().max().item()
+            tiles[f"{th}x{tw}"] = {"ms": by_tile[f"k3[{th}x{tw}]"]["ms"], "max_abs_err": err}
+        del ref
+        plain_ms = sync_ms(lambda: k3.conv3x3_plain(x, wgt), iters=5, warmup=1)
+        best = min(tiles, key=lambda t: tiles[t]["ms"])
+        err = max(t["max_abs_err"] for t in tiles.values())
+        b = probe.bound(*shape)
+        row = dict(kernel="conv3x3", shape=list(shape), detail=f"stage {stage}, tile {best}",
+                   calls_per_request=1, max_abs_err=err, rel_err=err / scale, tol=K3_TOL,
+                   bound_ms=b["bound_ms"], bound_by=b["bound_by"], bytes=b["bytes"],
+                   flops=probe.flops(*shape), bytes_ms=b["bytes_ms"], ops_ms=b["ops_ms"],
+                   ms=tiles[best]["ms"], plain_ms=plain_ms,
+                   library_ms=by_tile["cudnn_bf16"]["ms"], tiles=tiles)
+        rows.append(row)
+        log(f"[conv probe] K3 stage {stage} {tuple(shape)}: err {err:.3e} (rel "
+            f"{row['rel_err']:.2e}, tol {K3_TOL:.2e}) | ms " + ", ".join(
+                f"{t} {v['ms']:.3f}" for t, v in tiles.items())
+            + f" | plain {plain_ms:.3f} cudnn {row['library_ms']:.3f} "
+            f"bound {b['bound_ms']:.3f} ({b['bound_by']})")
+        if not row["rel_err"] <= K3_TOL:
+            raise RuntimeError(f"conv3x3 stage {stage}: error {row['rel_err']:.3e} "
+                               f"above tolerance {K3_TOL:.3e}")
+    return rows, launches["conv3x3"], probed
+
+
 def phase_card_vs_cpu() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -360,13 +427,17 @@ def phase_card_vs_cpu() -> dict:
 
 
 def summarize(rows: list, launches: dict) -> list:
-    """One entry per kernel; times are per predict_ddim request (each shape's
-    time times its calls per request, summed), errors the largest seen."""
+    """One entry per kernel; times are per request of its path (each shape's
+    time times its calls per request, summed): one predict_ddim for K1 and
+    K2, one call at each probe stage (the fastest tile) for K3. Errors are
+    the largest seen."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
                           "diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py:47"),
         "fused_attention": ("diffusion_model_project_tpu_torch/csrc/attention.cu",
                             "diffusion_model_project_tpu/ops/pallas/attention.py:56"),
+        "conv3x3": ("diffusion_model_project_tpu_torch/csrc/conv3x3.cu",
+                    "scripts/perf_probe_conv.py:77"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -391,13 +462,15 @@ def main() -> int:
     build = phase_build()
     sl = phase_slice()
     rows = phase_kernels(sl["shapes"], sl["launches"])
+    conv_rows, conv_launches, probed = phase_conv_probe()
     cvc = phase_card_vs_cpu()
-    kernels = summarize(rows, sl["launches"])
+    kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches})
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
         {"key": list(map(str, k)), "calls": v} for k, v in sl["shapes"].items()]},
-        "kernel_rows": rows, "card_vs_cpu": cvc, "kernels": kernels, "seconds": total}
+        "kernel_rows": rows + conv_rows, "conv_probe": probed, "card_vs_cpu": cvc,
+        "kernels": kernels, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)

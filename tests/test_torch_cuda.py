@@ -13,6 +13,7 @@ import torch
 
 from diffusion_model_project_tpu_torch.ops.attention import multihead_attention
 from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
+from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
 from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 
 
@@ -72,6 +73,30 @@ def test_fused_attention_kernel(gen, dtype, tol, n, t, e):
     assert _rel_err(got, ref) <= tol
 
 
+# float32 runs SIMT products (no TF32): only the order of the 9 * Cin sums
+# differs; bf16 rounds the float32 sum once, half an ulp: at most 2^-8 of max|y|
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("tile", k3.TILES)
+@pytest.mark.parametrize("shape", [
+    (2, 64, 64, 128, 128),   # probe-like: stage A's widths, fewer images
+    (3, 13, 37, 24, 40),     # ragged H and W, Cout below one channel block
+    (2, 16, 48, 64, 200),    # Cout not a multiple of the channel block
+    (1, 7, 9, 5, 11),        # channel counts off 8: the scalar load path
+])
+def test_conv3x3_kernel(gen, dtype, tol, tile, shape):
+    n, h, w, cin, cout = shape
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dtype)
+    wgt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") * 0.1).to(dtype)
+    before = k3.LAUNCHES
+    got = k3.conv3x3(x, wgt, tile)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (n, h, w, cout)
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain version in full float32
+    assert _rel_err(got, k3.conv3x3_plain(x.float(), wgt.float())) <= tol
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_grad_and_bad_input(gen):
     x = torch.randn((2, 64, 8, 8), generator=gen, device="cuda", requires_grad=True)
@@ -85,3 +110,11 @@ def test_kernels_refuse_grad_and_bad_input(gen):
     with pytest.raises(ValueError, match="head dim"):
         k2.fused_attention(xa, wq, torch.zeros(288, device="cuda"), wo,
                            torch.zeros(96, device="cuda"), 2)
+    xc = torch.randn((2, 8, 16, 32), generator=gen, device="cuda")
+    wc = torch.randn((3, 3, 32, 16), generator=gen, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        k3.conv3x3(xc, wc.clone().requires_grad_())
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.conv3x3(xc.transpose(1, 2), wc)
+    with pytest.raises(ValueError, match="expected x"):
+        k3.conv3x3(xc, wc.permute(3, 2, 0, 1))

@@ -50,6 +50,14 @@ def test_port_calls_no_library_kernel_for_k1_or_k2():
     assert {k: v for k, v in found.items() if v} == {}
 
 
+def test_k3_wrapper_calls_no_library_conv():
+    # the models' convolutions stay on cuDNN and the probe times it as its
+    # yardstick; K3's wrapper and plain version compute without it
+    text = (PORT / "ops" / "cuda" / "conv3x3.py").read_text()
+    calls = ("conv2d", "_conv_forward", "F.conv", "torch.conv", "cudnn")
+    assert [c for c in calls if c in text] == []
+
+
 def test_import_chain_leaves_jax_unloaded():
     code = ("import sys\n"
             "import diffusion_model_project_tpu_torch\n"
@@ -57,6 +65,8 @@ def test_import_chain_leaves_jax_unloaded():
             "LatentDiffusionPredictor\n"
             "import diffusion_model_project_tpu_torch.ops.cuda.attention\n"
             "import diffusion_model_project_tpu_torch.ops.cuda.groupnorm_act\n"
+            "import diffusion_model_project_tpu_torch.ops.cuda.conv3x3\n"
+            "import diffusion_model_project_tpu_torch.scripts.perf_probe_conv\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'diffusion_model_project_tpu'))\n"
             "assert not bad, bad\n")
