@@ -15,14 +15,16 @@ printing a result line:
      equal the main path's GroupNorm / attention call count), then timed;
   4. kernels: each kernel against its plain PyTorch version on the card at
      every shape phase 3 met, bf16 inputs, the plain version in float32 from
-     the same bf16 tensors; kernel, plain, library (one PyTorch call, used
-     nowhere in the port) and bound times;
+     the same bf16 tensors; kernel (CUDA events around 20 back-to-back
+     calls), device (torch.profiler: the kernels a call launches; K2 split
+     into QKV GEMM, core and output GEMM), plain, library (one PyTorch call,
+     used nowhere in the port) and bound times;
   5. conv probe: the port's conv probe (scripts/perf_probe_conv.py) over
      stages A, B and C with the launch counters set to 0 (K3 must have
      launched as often as the probe called it, K1 and K2 never); then K3 at
      each stage and tile against its plain version in float32 from the same
      bf16 tensors, and the plain version's time (kernel and library times
-     are the probe's);
+     are the probe's; device time at the fastest tile);
   6. card against CPU: the same port at published widths, 128^2 x 3, B=1,
      DDIM-5, float32 (TF32 off), from the same weights and noise;
   7. the kernel table as one JSON line, then the result line.
@@ -79,6 +81,60 @@ def sync_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_kernels(fn, iters: int = 10, per_call: int = 0, keep=None) -> list:
+    """The CUDA kernels that ``iters`` calls of ``fn`` launch, in launch order,
+    as (name, ms) from torch.profiler (after one warm-up call). A trace that
+    misses kernels (none, or not ``per_call`` a call of those whose name
+    ``keep`` accepts, where given) is taken again, up to three times: on an
+    H100, one trace of a run once came back empty while the others were
+    complete."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        kept = [e for e in evs if keep is None or keep(e.name)]
+        if evs and (not per_call or len(kept) == per_call * iters):
+            return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in evs]
+        log(f"[profile] the trace of {iters} calls held {len(evs)} CUDA kernels; again")
+    raise RuntimeError(f"torch.profiler recorded {len(evs)} CUDA kernels in {iters} calls")
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the CUDA kernels it launches, summed."""
+    return sum(ms for _, ms in device_kernels(fn, iters)) / iters
+
+
+K2_PARTS = ("qkv_gemm", "core", "out_gemm")  # K2's three launches, in launch order
+
+
+def k2_split(kernels: list) -> dict:
+    """Device time (ms, summed) of K2's parts among ``kernels``, the kernels of
+    whole K2 calls in launch order; "other" sums kernels not K2's own."""
+    split = dict.fromkeys(K2_PARTS + ("other",), 0.0)
+    own = 0
+    for name, ms in kernels:
+        if is_k2_kernel(name):
+            split[K2_PARTS[own % 3]] += ms
+            own += 1
+        else:
+            split["other"] += ms
+    return split
+
+
+def is_k2_kernel(name: str) -> bool:
+    # K2's kernels live in attention.cu's anonymous namespace; cuBLAS's and
+    # cuDNN's names carry no "::gemm_bias" or "::attention_core"
+    return "::gemm_bias" in name or "::attention_core" in name
 
 
 def phase_device() -> dict:
@@ -237,21 +293,40 @@ def phase_slice() -> dict:
     with torch.inference_mode():
         _, x, z_cond, m_cond = pred._setup_sampling(img, vel, noise, None)
         t_batch = torch.full((x.shape[0],), 999, dtype=torch.int64, device=dev)
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+
+        from diffusion_model_project_tpu_torch.models.layers import MultiheadSelfAttention
 
         pred._unet_eps(x, z_cond, m_cond, t_batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pred._unet_eps(x, z_cond, m_cond, t_batch)
-            torch.cuda.synchronize()
+        k2_kernels = 3 * sum(isinstance(m, MultiheadSelfAttention) for m in pred.model.modules())
+        for _ in range(3):  # a trace that misses K2's kernels is taken again
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                pred._unet_eps(x, z_cond, m_cond, t_batch)
+                torch.cuda.synchronize()
+            evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+            k2_evs = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                      for e in evs if is_k2_kernel(e.name)]
+            if len(k2_evs) == k2_kernels:
+                break
+            log(f"[profile] the forward's trace held {len(k2_evs)} of K2's kernels; again")
+        else:
+            raise RuntimeError(f"the profiled forward shows {len(k2_evs)} of K2's "
+                               f"{k2_kernels} kernels")
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=15)
     for ln in table.splitlines():
         log(f"[profile] {ln}")
+    k2_forward = k2_split(k2_evs)
+    log(f"[profile] K2 device time in this UNet forward (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in k2_forward.items())
+        + f", total {sum(k2_forward.values()):.4f}")
 
     res = {"batch": B, "slices": S, "hw": HW, "steps": STEPS, "warmup_s": warm_s,
            "request_s": per_req, "volumes_per_s": B / per_req, "stage_ms": stages,
            "peak_bytes": peak, "launches": launches, "shapes": seen,
-           "profile_unet_forward": table}
+           "profile_unet_forward": table, "profile_k2_ms": k2_forward}
     log(f"[slice] warm-up {warm_s:.2f} s; request {per_req * 1e3:.1f} ms; "
         f"{B / per_req:.3f} volumes/s; stages (ms) "
         + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
@@ -277,6 +352,7 @@ def _k1_case(shape, groups, act, gen):
         "ms": sync_ms(lambda: k1.groupnorm_act(x, w, b, groups, act)),
         "plain_ms": sync_ms(lambda: k1.groupnorm_act_plain(x, w, b, groups, act)),
         "library_ms": sync_ms(lambda: post(F.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype)))),
+        "device_ms": device_ms(lambda: k1.groupnorm_act(x, w, b, groups, act)),
     }
     n = x.numel()
     nbytes = 2 * n * 2 + 2 * c * 4          # bf16 x read + y written, f32 affine
@@ -314,6 +390,11 @@ def _k2_case(shape, heads, gen):
         "plain_ms": sync_ms(lambda: multihead_attention(*args, heads)),
         "library_ms": sync_ms(library),
     }
+    iters = 10
+    kernels = device_kernels(lambda: k2.fused_attention(*args, heads), iters, per_call=3,
+                             keep=is_k2_kernel)
+    times["device_split_ms"] = {k: v / iters for k, v in k2_split(kernels).items()}
+    times["device_ms"] = sum(times["device_split_ms"].values())
     nbytes = 2 * (2 * n * t * e + 4 * e * e + 4 * e)
     flops = 2 * n * t * e * 3 * e + 2 * 2 * n * t * t * e + 2 * n * t * e * e
     return err, err / scale, nbytes, flops, times
@@ -341,8 +422,10 @@ def phase_kernels(shapes: dict, launches: dict) -> list:
         rows.append(row)
         log(f"[kernels] {key[0]:15s} {str(tuple(shape)):26s} {label:20s} x{calls:<5d} "
             f"err {err:.3e} (rel {rel:.2e}, tol {tol:.2e}) | ms {times['ms']:.4f} "
-            f"plain {times['plain_ms']:.4f} library {times['library_ms']:.4f} "
-            f"bound {bound_ms:.4f} ({bound_by})")
+            f"device {times['device_ms']:.4f} plain {times['plain_ms']:.4f} "
+            f"library {times['library_ms']:.4f} bound {bound_ms:.4f} ({bound_by})"
+            + ("".join(f" | {k} {v:.4f}" for k, v in times["device_split_ms"].items())
+               if "device_split_ms" in times else ""))
         if not rel <= tol:
             raise RuntimeError(f"{key[0]} {shape}: error {rel:.3e} above tolerance {tol:.3e}")
     for name, n in launches.items():
@@ -387,19 +470,21 @@ def phase_conv_probe() -> tuple:
         del ref
         plain_ms = sync_ms(lambda: k3.conv3x3_plain(x, wgt), iters=5, warmup=1)
         best = min(tiles, key=lambda t: tiles[t]["ms"])
+        best_tile = tuple(int(v) for v in best.split("x"))
+        k3_device_ms = device_ms(lambda: k3.conv3x3(x, wgt, best_tile), iters=5)
         err = max(t["max_abs_err"] for t in tiles.values())
         b = probe.bound(*shape)
         row = dict(kernel="conv3x3", shape=list(shape), detail=f"stage {stage}, tile {best}",
                    calls_per_request=1, max_abs_err=err, rel_err=err / scale, tol=K3_TOL,
                    bound_ms=b["bound_ms"], bound_by=b["bound_by"], bytes=b["bytes"],
                    flops=probe.flops(*shape), bytes_ms=b["bytes_ms"], ops_ms=b["ops_ms"],
-                   ms=tiles[best]["ms"], plain_ms=plain_ms,
+                   ms=tiles[best]["ms"], device_ms=k3_device_ms, plain_ms=plain_ms,
                    library_ms=by_tile["cudnn_bf16"]["ms"], tiles=tiles)
         rows.append(row)
         log(f"[conv probe] K3 stage {stage} {tuple(shape)}: err {err:.3e} (rel "
             f"{row['rel_err']:.2e}, tol {K3_TOL:.2e}) | ms " + ", ".join(
                 f"{t} {v['ms']:.3f}" for t, v in tiles.items())
-            + f" | plain {plain_ms:.3f} cudnn {row['library_ms']:.3f} "
+            + f" | device {k3_device_ms:.3f} plain {plain_ms:.3f} cudnn {row['library_ms']:.3f} "
             f"bound {b['bound_ms']:.3f} ({b['bound_by']})")
         if not row["rel_err"] <= K3_TOL:
             raise RuntimeError(f"conv3x3 stage {stage}: error {row['rel_err']:.3e} "
@@ -445,7 +530,8 @@ def summarize(rows: list, launches: dict) -> list:
         tot = lambda k: sum(r[k] * r["calls_per_request"] for r in rs)
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rs),
-                    "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+                    "ms": tot("ms"), "device_ms": tot("device_ms"), "plain_ms": tot("plain_ms"),
+                    "bound_ms": tot("bound_ms"),
                     "bound_by": "bytes" if tot("bytes_ms") >= tot("ops_ms") else "operations",
                     "library_ms": tot("library_ms")})
     return out

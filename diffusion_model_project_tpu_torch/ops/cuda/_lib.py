@@ -3,9 +3,11 @@
 Each ``.cu`` source is compiled by its own ``nvcc`` process (all started at
 once) for ``sm_90a``, and the objects are linked into one ``libkernels.so``
 with a plain C interface, loaded with ``ctypes``. The library lives in
-``_build/<hash of the sources>/``, so an edited source builds afresh and an
-unchanged one is reused. Nothing here runs at import time: the first kernel
-launch builds.
+``_build/<hash of the sources and headers>/``, so an edited source or
+``.cuh`` header builds afresh and an unchanged tree is reused. The kernels
+reach the driver's ``cuTensorMapEncodeTiled`` through the runtime's
+``cudaGetDriverEntryPoint``, so the library links no ``-lcuda``. Nothing
+here runs at import time: the first kernel launch builds.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (each returns cudaError_t as int)
 _SIGNATURES = {
     "dm_groupnorm_act": [_I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _F, _I, _P],
-    "dm_gemm_bias": [_I, _P, _P, _L, _L, _P, _P, _L, _L, _L, _P],
-    "dm_attention_core": [_I, _P, _P, _L, _L, _I, _I, _P],
+    "dm_gemm_bias": [_I, _P, _P, _L, _L, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P],
+    "dm_attention_core": [_I, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "dm_conv3x3": [_I, _I, _P, _P, _P, _L, _L, _L, _L, _L, _P],
 }
 
@@ -50,12 +52,14 @@ def _nvcc() -> str:
 
 
 def sources() -> list:
+    """The sources ``nvcc`` compiles, one object each."""
     return sorted(SRC_DIR.glob("*.cu"))
 
 
-def _digest(srcs) -> str:
+def _digest() -> str:
+    """Hash of every source and header under ``SRC_DIR`` and of the flags."""
     h = hashlib.sha256()
-    for s in srcs:
+    for s in sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -66,7 +70,7 @@ def build() -> Path:
     """Compile the sources (in parallel) and link ``libkernels.so``; returns its path."""
     global build_seconds
     srcs = sources()
-    out_dir = BUILD_DIR / _digest(srcs)
+    out_dir = BUILD_DIR / _digest()
     so = out_dir / "libkernels.so"
     if so.exists():
         return so
@@ -102,7 +106,7 @@ def build() -> Path:
 
 def build_log() -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory, spills)."""
-    out_dir = BUILD_DIR / _digest(sources())
+    out_dir = BUILD_DIR / _digest()
     return "\n".join(p.read_text() for p in sorted(out_dir.glob("*.log")))
 
 
@@ -125,6 +129,9 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The handle of PyTorch's current CUDA stream on ``t``'s device. The raw
+    handle (as Triton's launcher reads it) skips building a ``torch.cuda.Stream``,
+    which costs host time on every launch of a host-bound loop."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -52,18 +52,29 @@ def test_groupnorm_act_kernel(gen, dtype, tol, shape, groups, act):
     assert _rel_err(got, k1.groupnorm_act_plain(x.float(), w, b, groups, act)) <= tol
 
 
+def _weight(w, layout):
+    """A (K, N) weight from its (N, K) storage: the transposed view the module
+    passes, or a row-major copy made before the call."""
+    return w.t() if layout == "view" else w.t().contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.3e-2)])
-@pytest.mark.parametrize("n,t,e", [(22, 256, 256), (22, 64, 512), (22, 16, 1024), (3, 37, 64)])
-def test_fused_attention_kernel(gen, dtype, tol, n, t, e):
+@pytest.mark.parametrize("n,t,e", [
+    (22, 256, 256), (22, 64, 512), (22, 16, 1024),  # the UNet's three shapes at B=2
+    (3, 37, 64),    # ragged T (M = 111), head dim 32
+    (3, 16, 1024),  # T below one 64-row tile, M = 48
+])
+@pytest.mark.parametrize("qkv_layout,out_layout", [
+    ("view", "view"), ("view", "rowmajor"), ("rowmajor", "view"), ("rowmajor", "rowmajor")])
+def test_fused_attention_kernel(gen, dtype, tol, n, t, e, qkv_layout, out_layout):
     heads = 2
     x = torch.randn((n, t, e), generator=gen, device="cuda").to(dtype)
     w_qkv = (torch.randn((3 * e, e), generator=gen, device="cuda") / math.sqrt(e)).to(dtype)
     b_qkv = (0.02 * torch.randn(3 * e, generator=gen, device="cuda")).to(dtype)
     w_out = torch.randn((e, e), generator=gen, device="cuda").to(dtype) / math.sqrt(e)
     b_out = (0.02 * torch.randn(e, generator=gen, device="cuda")).to(dtype)
-    # a transposed view (as the module passes) and a row-major weight
-    args = (x, w_qkv.t(), b_qkv, w_out.t().contiguous(), b_out)
+    args = (x, _weight(w_qkv, qkv_layout), b_qkv, _weight(w_out, out_layout), b_out)
     before = k2.LAUNCHES
     got = k2.fused_attention(*args, heads)
     torch.cuda.synchronize()
@@ -71,6 +82,21 @@ def test_fused_attention_kernel(gen, dtype, tol, n, t, e):
     ref = multihead_attention(*[a.float() for a in args], heads)
     assert got.dtype == dtype and got.shape == x.shape
     assert _rel_err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_refuses_misaligned_x(gen, dtype):
+    n, t, e = 2, 16, 64
+    buf = torch.randn(n * t * e + 1, generator=gen, device="cuda").to(dtype)
+    x = buf[1:].view(n, t, e)  # contiguous, one element past a 16-byte boundary
+    w_qkv = torch.zeros((e, 3 * e), dtype=dtype, device="cuda")
+    w_out = torch.zeros((e, e), dtype=dtype, device="cuda")
+    before = k2.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        k2.fused_attention(x, w_qkv, torch.zeros(3 * e, dtype=dtype, device="cuda"), w_out,
+                           torch.zeros(e, dtype=dtype, device="cuda"), 2)
+    assert k2.LAUNCHES == before
 
 
 # float32 runs SIMT products (no TF32): only the order of the 9 * Cin sums

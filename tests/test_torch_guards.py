@@ -58,6 +58,25 @@ def test_k3_wrapper_calls_no_library_conv():
     assert [c for c in calls if c in text] == []
 
 
+def test_k2_products_stay_hand_written():
+    # the projections are part of the TPU kernel's body, so K2 computes them
+    # in its own kernels: no library GEMM in the sources, no PyTorch product
+    # in the wrapper (its CPU branch calls the plain version in ops/attention.py)
+    csrc = sorted((PORT / "csrc").glob("*.cu")) + sorted((PORT / "csrc").glob("*.cuh"))
+    assert any(f.suffix == ".cuh" for f in csrc)
+    libraries = ("cublas", "cudnn", "cutlass/gemm", "cutlass/device", "cute/")
+    includes = {f.name: [ln.lower() for ln in f.read_text().splitlines()
+                         if ln.lstrip().startswith("#include")] for f in csrc}
+    found = {k: [ln for ln in v if any(w in ln for w in libraries)] for k, v in includes.items()}
+    assert {k: v for k, v in found.items() if v} == {}
+    text = (PORT / "ops" / "cuda" / "attention.py").read_text()
+    assert [c for c in ("F.linear", "torch.matmul", "torch.mm", "torch.bmm", "einsum")
+            if c in text] == []
+    tree = ast.parse(text)
+    assert not [n for n in ast.walk(tree)
+                if isinstance(n, (ast.BinOp, ast.AugAssign)) and isinstance(n.op, ast.MatMult)]
+
+
 def test_import_chain_leaves_jax_unloaded():
     code = ("import sys\n"
             "import diffusion_model_project_tpu_torch\n"
