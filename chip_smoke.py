@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero without
-printing a result line:
+Phases, in the order 1, 2, 5, 3, 4, 6, 7 (the conv probe's device times are
+read before phase 3 profiles a UNet forward; see device_kernels); any
+failure raises and the script exits non-zero without printing a result
+line:
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the hand-written kernels (csrc/*.cu, one nvcc per source)
      into libkernels.so;
@@ -16,15 +18,18 @@ printing a result line:
   4. kernels: each kernel against its plain PyTorch version on the card at
      every shape phase 3 met, bf16 inputs, the plain version in float32 from
      the same bf16 tensors; kernel (CUDA events around 20 back-to-back
-     calls), device (torch.profiler: the kernels a call launches; K2 split
-     into QKV GEMM, core and output GEMM), plain, library (one PyTorch call,
-     used nowhere in the port) and bound times;
+     calls), device (torch.profiler: the kernels a call launches, from a
+     trace that holds every one of them; K2 split into QKV GEMM, core and
+     output GEMM), plain, library (one PyTorch call, used nowhere in the
+     port) and bound times;
   5. conv probe: the port's conv probe (scripts/perf_probe_conv.py) over
      stages A, B and C with the launch counters set to 0 (K3 must have
      launched as often as the probe called it, K1 and K2 never); then K3 at
      each stage and tile against its plain version in float32 from the same
-     bf16 tensors, and the plain version's time (kernel and library times
-     are the probe's; device time at the fastest tile);
+     bf16 tensors, the device time (torch.profiler) of K3 at each tile and
+     of cuDNN, and at the planner's tile (the one conv3x3() launches by
+     default, K3's row) K3's TFLOP/s and share of the bound; the plain
+     version's time (back-to-back kernel and library times are the probe's);
   6. card against CPU: the same port at published widths, 128^2 x 3, B=1,
      DDIM-5, float32 (TF32 off), from the same weights and noise;
   7. the kernel table as one JSON line, then the result line.
@@ -60,6 +65,7 @@ K1_TOL = 2.0 ** -7
 K2_TOL = 1.3e-2
 K3_TOL = 2.0 ** -8
 CARD_VS_CPU_TOL = 1e-3  # float32, sums in another order on each side
+K3_WARM, K3_ITERS = 30, 10  # K3 / cuDNN device time: calls before the trace, calls traced
 
 B, S, HW, STEPS = 2, 11, 256, 50
 NORM_OUTPUT = [2.1e-2, 1.6e-2, 7.9e-3]
@@ -83,35 +89,114 @@ def sync_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(fn, iters: int = 10, per_call: int = 0, keep=None) -> list:
-    """The CUDA kernels that ``iters`` calls of ``fn`` launch, in launch order,
-    as (name, ms) from torch.profiler (after one warm-up call). A trace that
-    misses kernels (none, or not ``per_call`` a call of those whose name
-    ``keep`` accepts, where given) is taken again, up to three times: on an
-    H100, one trace of a run once came back empty while the others were
-    complete."""
+SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel, launched first in every trace
+PROFILER = {"traces": 0, "first_left_out": 0}  # over the run, by device_kernels
+
+
+def _trace(fn, iters: int, counter) -> tuple:
+    """One torch.profiler trace: the sentinel kernel, then ``iters`` calls of
+    ``fn``. Returns the CUDA kernels as (name, ms) in launch order and the
+    change of ``counter()`` (a wrapper's launch count; None without one)
+    over the calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        before = counter() if counter else None
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        launched = counter() - before if counter else None
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in evs], launched
+
+
+def complete(kernels: list, iters: int, keep=None, launched=None, per_launch: int = 1) -> bool:
+    """Whether a trace of ``iters`` calls holds every kernel they launched:
+    each name a whole number of times a call and, where the wrapper counted
+    ``launched`` launches, ``per_launch`` kernels that ``keep`` accepts for
+    each of them."""
+    counts = {}
+    for name, _ in kernels:
+        counts[name] = counts.get(name, 0) + 1
+    if not counts or any(c % iters for c in counts.values()):
+        return False
+    kept = sum(c for name, c in counts.items() if keep is None or keep(name))
+    return launched is None or kept == per_launch * launched
+
+
+def device_kernels(fn, iters: int = 10, keep=None, counter=None, per_launch: int = 1,
+                   warmup: int = 1, tries: int = 5) -> list:
+    """The CUDA kernels that ``iters`` calls of ``fn`` launch, in launch order,
+    as (name, ms) from torch.profiler, after ``warmup`` calls. On an H100
+    torch.profiler may leave the first kernel of a trace out of it (most
+    traces once a process has profiled a UNet forward, phase 3); each trace
+    therefore starts with a sentinel kernel of its own, which is not
+    returned. A trace that is not :func:`complete` is taken again, up to
+    ``tries`` traces, then raises."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
+    for _ in range(tries):
+        kernels, launched = _trace(fn, iters, counter)
+        PROFILER["traces"] += 1
+        PROFILER["first_left_out"] += not kernels or SENTINEL not in kernels[0][0]
+        own = [k for k in kernels if SENTINEL not in k[0]]
+        if complete(own, iters, keep, launched, per_launch):
+            return own
+        counts = {}
+        for name, _ in own:
+            counts[name[:48]] = counts.get(name[:48], 0) + 1
+        log(f"[profile] a trace of {iters} calls ({launched} launches counted) held {counts}; "
+            f"again")
+    raise RuntimeError(f"torch.profiler recorded {len(own)} CUDA kernels in {iters} calls")
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 1, **kw) -> float:
+    """Device time of one call of ``fn``: the CUDA kernels ``iters`` calls
+    launch, from a complete trace (:func:`device_kernels`), summed over
+    ``iters``."""
+    return sum(ms for _, ms in device_kernels(fn, iters, warmup=warmup, **kw)) / iters
+
+
+def library_device_ms(fn, **kw):
+    """:func:`device_ms` of a library call, which has no launch counter and
+    is read beside a kernel, never checked: None where no trace was complete."""
+    try:
+        return device_ms(fn, **kw)
+    except RuntimeError as e:
+        log(f"[profile] library device time not measured: {e}")
+        return None
+
+
+def tally(label: str, since: dict) -> dict:
+    """The traces taken since ``since`` (a copy of PROFILER), and of how many
+    torch.profiler left the first kernel (the sentinel) out."""
+    d = {"label": label, **{k: PROFILER[k] - since[k] for k in PROFILER}}
+    log(f"[profile] {label}: torch.profiler left the first kernel (the sentinel) out of "
+        f"{d['first_left_out']} of {d['traces']} traces")
+    return d
+
+
+def profiler_check(label: str) -> dict:
+    """:func:`tally` of three traces of 10 small elementwise calls."""
+    z = torch.zeros(256, device="cuda")
+    before = dict(PROFILER)
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        kept = [e for e in evs if keep is None or keep(e.name)]
-        if evs and (not per_call or len(kept) == per_call * iters):
-            return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in evs]
-        log(f"[profile] the trace of {iters} calls held {len(evs)} CUDA kernels; again")
-    raise RuntimeError(f"torch.profiler recorded {len(evs)} CUDA kernels in {iters} calls")
+        device_kernels(lambda: z.add_(1.0), 10)
+    return tally(label, before)
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time of one call of ``fn``: the CUDA kernels it launches, summed."""
-    return sum(ms for _, ms in device_kernels(fn, iters)) / iters
+def clocks() -> str:
+    """The SM clock and power draw of the card in use, as nvidia-smi reads
+    them now, or why they could not be read."""
+    uuid = torch.cuda.get_device_properties(torch.cuda.current_device()).uuid
+    r = subprocess.run(["nvidia-smi", "-i", f"GPU-{uuid}", "--query-gpu=clocks.sm,power.draw",
+                        "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return r.stdout.strip() if r.returncode == 0 else f"not read (nvidia-smi exit {r.returncode})"
 
 
 K2_PARTS = ("qkv_gemm", "core", "out_gemm")  # K2's three launches, in launch order
@@ -352,7 +437,8 @@ def _k1_case(shape, groups, act, gen):
         "ms": sync_ms(lambda: k1.groupnorm_act(x, w, b, groups, act)),
         "plain_ms": sync_ms(lambda: k1.groupnorm_act_plain(x, w, b, groups, act)),
         "library_ms": sync_ms(lambda: post(F.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype)))),
-        "device_ms": device_ms(lambda: k1.groupnorm_act(x, w, b, groups, act)),
+        "device_ms": device_ms(lambda: k1.groupnorm_act(x, w, b, groups, act),
+                               counter=lambda: k1.LAUNCHES, per_launch=2),
     }
     n = x.numel()
     nbytes = 2 * n * 2 + 2 * c * 4          # bf16 x read + y written, f32 affine
@@ -391,8 +477,8 @@ def _k2_case(shape, heads, gen):
         "library_ms": sync_ms(library),
     }
     iters = 10
-    kernels = device_kernels(lambda: k2.fused_attention(*args, heads), iters, per_call=3,
-                             keep=is_k2_kernel)
+    kernels = device_kernels(lambda: k2.fused_attention(*args, heads), iters, keep=is_k2_kernel,
+                             counter=lambda: k2.LAUNCHES, per_launch=3)
     times["device_split_ms"] = {k: v / iters for k, v in k2_split(kernels).items()}
     times["device_ms"] = sum(times["device_split_ms"].values())
     nbytes = 2 * (2 * n * t * e + 4 * e * e + 4 * e)
@@ -436,6 +522,8 @@ def phase_kernels(shapes: dict, launches: dict) -> list:
 
 def phase_conv_probe() -> tuple:
     """The conv probe's path, counted; then K3 against its plain version."""
+    import torch.nn.functional as F
+
     from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
     from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
     from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
@@ -469,23 +557,48 @@ def phase_conv_probe() -> tuple:
             tiles[f"{th}x{tw}"] = {"ms": by_tile[f"k3[{th}x{tw}]"]["ms"], "max_abs_err": err}
         del ref
         plain_ms = sync_ms(lambda: k3.conv3x3_plain(x, wgt), iters=5, warmup=1)
-        best = min(tiles, key=lambda t: tiles[t]["ms"])
-        best_tile = tuple(int(v) for v in best.split("x"))
-        k3_device_ms = device_ms(lambda: k3.conv3x3(x, wgt, best_tile), iters=5)
+        # device times at the card's steady clock under load (it drops from its
+        # 1,980 MHz maximum within a few calls at the 700 W limit): each
+        # measurement follows K3_WARM calls of the same function, and cuDNN
+        # is taken before and after K3's tiles
+        x_cl = x.permute(0, 3, 1, 2)  # the library's own layout, as the probe times it
+        w_cl = wgt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        cudnn = lambda: F.conv2d(x_cl, w_cl, padding=1)  # noqa: E731
+        cudnn_device = [library_device_ms(cudnn, iters=K3_ITERS, warmup=K3_WARM)]
+        for th, tw in k3.TILES:
+            tiles[f"{th}x{tw}"]["device_ms"] = device_ms(
+                lambda: k3.conv3x3(x, wgt, (th, tw)), iters=K3_ITERS, warmup=K3_WARM,
+                keep=lambda name: "conv3x3" in name, counter=lambda: k3.LAUNCHES)
+        cudnn_device.append(library_device_ms(cudnn, iters=K3_ITERS, warmup=K3_WARM))
+        clock = clocks()
+        read = [t for t in cudnn_device if t is not None]
+        cudnn_device_ms = sum(read) / len(read) if read else None
+        # the row is the tile conv3x3() launches by default; the others are detail
+        planned = "x".join(map(str, k3.plan(*shape).tile))
+        fastest = min(tiles, key=lambda t: tiles[t]["device_ms"])
         err = max(t["max_abs_err"] for t in tiles.values())
         b = probe.bound(*shape)
-        row = dict(kernel="conv3x3", shape=list(shape), detail=f"stage {stage}, tile {best}",
+        fl = probe.flops(*shape)
+        k3_device_ms = tiles[planned]["device_ms"]
+        row = dict(kernel="conv3x3", shape=list(shape), detail=f"stage {stage}, tile {planned}",
                    calls_per_request=1, max_abs_err=err, rel_err=err / scale, tol=K3_TOL,
                    bound_ms=b["bound_ms"], bound_by=b["bound_by"], bytes=b["bytes"],
-                   flops=probe.flops(*shape), bytes_ms=b["bytes_ms"], ops_ms=b["ops_ms"],
-                   ms=tiles[best]["ms"], device_ms=k3_device_ms, plain_ms=plain_ms,
-                   library_ms=by_tile["cudnn_bf16"]["ms"], tiles=tiles)
+                   flops=fl, bytes_ms=b["bytes_ms"], ops_ms=b["ops_ms"],
+                   ms=tiles[planned]["ms"], device_ms=k3_device_ms, plain_ms=plain_ms,
+                   library_ms=by_tile["cudnn_bf16"]["ms"], library_device_ms=cudnn_device_ms,
+                   library_device_ms_before_after=cudnn_device,
+                   device_tflops=fl / k3_device_ms / 1e9, bound_share=b["bound_ms"] / k3_device_ms,
+                   planned_tile=planned, fastest_tile=fastest, clocks_after=clock, tiles=tiles)
         rows.append(row)
         log(f"[conv probe] K3 stage {stage} {tuple(shape)}: err {err:.3e} (rel "
             f"{row['rel_err']:.2e}, tol {K3_TOL:.2e}) | ms " + ", ".join(
                 f"{t} {v['ms']:.3f}" for t, v in tiles.items())
-            + f" | device {k3_device_ms:.3f} plain {plain_ms:.3f} cudnn {row['library_ms']:.3f} "
-            f"bound {b['bound_ms']:.3f} ({b['bound_by']})")
+            + " | device " + ", ".join(f"{t} {v['device_ms']:.3f}" for t, v in tiles.items())
+            + f" | planned {planned}: ms {row['ms']:.3f}, device {k3_device_ms:.3f} ms, "
+            f"{row['device_tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of the bound "
+            f"{b['bound_ms']:.3f} ({b['bound_by']}); fastest {fastest} | cudnn ms "
+            f"{row['library_ms']:.3f} device {cudnn_device[0]} before, {cudnn_device[1]} after "
+            f"| plain {plain_ms:.3f} | clock, power {clock}")
         if not row["rel_err"] <= K3_TOL:
             raise RuntimeError(f"conv3x3 stage {stage}: error {row['rel_err']:.3e} "
                                f"above tolerance {K3_TOL:.3e}")
@@ -514,7 +627,7 @@ def phase_card_vs_cpu() -> dict:
 def summarize(rows: list, launches: dict) -> list:
     """One entry per kernel; times are per request of its path (each shape's
     time times its calls per request, summed): one predict_ddim for K1 and
-    K2, one call at each probe stage (the fastest tile) for K3. Errors are
+    K2, one call at each probe stage (the planner's tile) for K3. Errors are
     the largest seen."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
@@ -546,9 +659,16 @@ def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
     build = phase_build()
-    sl = phase_slice()
-    rows = phase_kernels(sl["shapes"], sl["launches"])
+    # the conv probe first: its device times are read before phase 3's trace
+    # of a UNet forward, after which torch.profiler drops kernels
+    start = dict(PROFILER)
     conv_rows, conv_launches, probed = phase_conv_probe()
+    tallies = [tally("conv probe", start), profiler_check("before the slice")]
+    sl = phase_slice()
+    tallies.append(profiler_check("after the slice"))
+    mark = dict(PROFILER)
+    rows = phase_kernels(sl["shapes"], sl["launches"])
+    tallies.append(tally("kernels", mark))
     cvc = phase_card_vs_cpu()
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches})
     total = time.perf_counter() - t_start
@@ -556,7 +676,7 @@ def main() -> int:
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
         {"key": list(map(str, k)), "calls": v} for k, v in sl["shapes"].items()]},
         "kernel_rows": rows + conv_rows, "conv_probe": probed, "card_vs_cpu": cvc,
-        "kernels": kernels, "seconds": total}
+        "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)

@@ -58,22 +58,6 @@ typedef __nv_bfloat16 bf16;
 // --------------------------------------------------------- GEMM + bias, bf16
 
 constexpr int GEMM_BK = 64;  // one 128-byte swizzle row of bf16
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on sm_90
-constexpr int MAX_DEVICES = 64;
-
-// Lets `kernel` use all of SMEM_LIMIT, once per device: the attribute is a
-// cap, and setting it on every launch costs host time on a host-bound path.
-template <typename Kernel>
-cudaError_t allow_max_smem(Kernel kernel, bool (&done)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-  done[dev] = err == cudaSuccess;
-  return err;
-}
 
 // must equal ops/cuda/attention.py::gemm_smem
 constexpr int gemm_smem(int bm, int bn, int stages) {

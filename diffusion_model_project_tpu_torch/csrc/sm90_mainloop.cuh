@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written tensor-core kernels:
-// mbarriers, TMA tile loads, a ring of shared-memory stages, wgmma shared-
-// memory descriptors for 128-byte swizzled tiles and the wgmma instructions
-// themselves, all as inline PTX (no CuTe, so a source builds in seconds).
+// mbarriers, TMA tile loads (2-D to 4-D) and stores, a ring of shared-memory
+// stages, wgmma shared-memory descriptors for 128-byte swizzled tiles and
+// the wgmma instructions themselves, all as inline PTX (no CuTe, so a source
+// builds in seconds), and the host's tensor-map encoding and shared-memory cap.
 //
 // Layout contract. Every operand tile in shared memory is made of TMA boxes
 // of 64 bf16 columns (128 bytes) by R rows, loaded with 128-byte swizzle, one
@@ -112,6 +113,51 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// x, y, z, w: innermost dimension first; coordinates may be negative or run
+// past the tensor, and those elements arrive as zeros (the bytes still count
+// toward the barrier's expected transaction)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// shared -> global; elements past the tensor's edge are not written. The
+// store joins the thread's open bulk group: bulk_commit() closes it.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// returns once at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// returns once at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// makes this thread's plain shared-memory writes visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ----------------------------------------------------------- descriptors
@@ -232,6 +278,23 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 }
 
 // ------------------------------------------------------------------ host
+
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on sm_90
+constexpr int MAX_DEVICES = 64;
+
+// Lets `kernel` use all of SMEM_LIMIT, once per device: the attribute is a
+// cap, and setting it on every launch costs host time on a host-bound path.
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel kernel, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  done[dev] = err == cudaSuccess;
+  return err;
+}
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
 // library needs no -lcuda

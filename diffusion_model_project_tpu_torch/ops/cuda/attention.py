@@ -22,26 +22,20 @@ import torch
 
 from ..attention import multihead_attention
 from . import _lib
+from ._sm90 import ALIGN_SLACK, SMEM_LIMIT, SMS, cdiv
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the UNet's head dims (128, 256, 512) and a small one for the card tests
 HEAD_DIMS = (32, 128, 256, 512)
 MAX_TOKENS = 1024
 MAX_BATCH = 65535  # the core's grid.z
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-SMS = 132  # streaming multiprocessors of an H100 SXM
 # GEMM tiles (rows, columns), largest first; the kernel has these instances
 GEMM_TILES = ((128, 128), (128, 64), (64, 64))
 GEMM_STAGES = 4
 CORE_MAX_STAGES = 4
-_ALIGN_SLACK = 1024  # the kernels align their tiles to 1024 bytes in shared memory
 
 # wrapper calls that launched the kernels (not counting CPU calls)
 LAUNCHES = 0
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 @dataclass(frozen=True)
@@ -69,19 +63,19 @@ class Plan(NamedTuple):
 def gemm_smem(bm: int, bn: int, stages: int) -> int:
     """Bytes of the GEMM's ring (A and B boxes of 64 K columns), its bf16
     epilogue tile (rows padded by 8) and its barriers (``csrc`` ``gemm_smem``)."""
-    return _ALIGN_SLACK + stages * (bm + bn) * 64 * 2 + bm * (bn + 8) * 2 + 16 * stages
+    return ALIGN_SLACK + stages * (bm + bn) * 64 * 2 + bm * (bn + 8) * 2 + 16 * stages
 
 
 def core_smem(hd: int, stages: int) -> int:
     """Bytes of the core's Q tile and ring of K/V tiles, 64 rows by
     max(hd, 64) columns each, and its barriers (``csrc`` ``core_smem``)."""
-    return _ALIGN_SLACK + 64 * max(hd, 64) * 2 * (1 + stages) + 8 * (2 * stages + 1)
+    return ALIGN_SLACK + 64 * max(hd, 64) * 2 * (1 + stages) + 8 * (2 * stages + 1)
 
 
 def plan_gemm(m: int, n: int) -> GemmPlan:
     """The largest tile that still gives every SM a block, else the one with the most."""
     for bm, bn in GEMM_TILES:
-        grid = (_cdiv(m, bm), _cdiv(n, bn))
+        grid = (cdiv(m, bm), cdiv(n, bn))
         if grid[0] * grid[1] >= SMS:
             break
     return GemmPlan(bm, bn, GEMM_STAGES, gemm_smem(bm, bn, GEMM_STAGES), grid)
@@ -90,7 +84,7 @@ def plan_gemm(m: int, n: int) -> GemmPlan:
 def plan_core(n: int, t: int, hd: int, heads: int) -> CorePlan:
     tile = 64 * max(hd, 64) * 2
     stages = min(CORE_MAX_STAGES, (SMEM_LIMIT - core_smem(hd, 0)) // (tile + 16))
-    return CorePlan(stages, core_smem(hd, stages), (_cdiv(t, 64), heads, n))
+    return CorePlan(stages, core_smem(hd, stages), (cdiv(t, 64), heads, n))
 
 
 @functools.lru_cache(maxsize=64)

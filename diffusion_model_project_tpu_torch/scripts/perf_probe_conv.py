@@ -16,7 +16,8 @@ Candidates:
   xla_int8   : not ported (ROADMAP Queue 1 item 6)
 
 Each prints ms and TFLOP/s and its max abs error against K3's plain version
-(float32 from the same bf16 inputs); K3 also prints its bound on an H100.
+(float32 from the same bf16 inputs); K3 also prints its share of its bound
+on an H100, and each stage the tile K3's planner takes.
 On the card, times come from CUDA events around back-to-back calls; on the
 CPU (``--device cpu``) from the host clock.
 
@@ -90,8 +91,13 @@ def probe_stage(name, shape, device, iters, rng) -> list:
     wgt = torch.from_numpy(rng.standard_normal((3, 3, cin, cout), dtype=np.float32) * 0.05).to(
         device, torch.bfloat16)
     ref = k3.conv3x3_plain(x.float(), wgt.float())
+    try:
+        planned = "x".join(map(str, k3.plan(*shape).tile))
+    except ValueError as e:  # outside the bf16 kernel's range: on the card K3 raises too
+        planned = f"none ({e})"
     print(f"\n=== stage {name}: ({n},{h},{w},{cin})->{cout}  {fl / 1e12:.3f} TFLOP  "
-          f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
+          f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})  planned K3 tile {planned}",
+          flush=True)
 
     # the library's own layout: x as an NCHW view with channels-last strides,
     # W converted once to OIHW channels-last (outside the clock)
@@ -115,8 +121,9 @@ def probe_stage(name, shape, device, iters, rng) -> list:
             results.append(rec)
             line = (f"  {cand:12s}: {ms:9.3f} ms  {rec['tflops']:7.1f} TFLOP/s  "
                     f"max abs err {err:.3e}")
-            if cand.startswith("k3"):
-                line += f"  bound {b['bound_ms']:.3f} ms ({b['bound_by']})"
+            if cand.startswith("k3") and device.type == "cuda":
+                line += (f"  {100 * b['bound_ms'] / ms:.1f}% of the bound {b['bound_ms']:.3f} ms "
+                         f"({b['bound_by']})")
             print(line, flush=True)
     print("  xla_int8    : not ported (ROADMAP Queue 1 item 6)", flush=True)
     return results

@@ -106,9 +106,11 @@ def test_fused_attention_refuses_misaligned_x(gen, dtype):
 @pytest.mark.parametrize("tile", k3.TILES)
 @pytest.mark.parametrize("shape", [
     (2, 64, 64, 128, 128),   # probe-like: stage A's widths, fewer images
-    (3, 13, 37, 24, 40),     # ragged H and W, Cout below one channel block
-    (2, 16, 48, 64, 200),    # Cout not a multiple of the channel block
-    (1, 7, 9, 5, 11),        # channel counts off 8: the scalar load path
+    (3, 13, 37, 24, 40),     # ragged H and W, boxes past both edges; Cin 24, Cout < 64
+    (2, 3, 3, 16, 16),       # every pixel on an edge
+    (2, 1, 40, 32, 64),      # one row: the halo's rows above and below are outside
+    (2, 16, 48, 72, 200),    # Cin tail past one 64-channel chunk; Cout not a multiple of 128
+    (1, 20, 24, 64, 136),    # one image; Cout one channel block and 8 more
 ])
 def test_conv3x3_kernel(gen, dtype, tol, tile, shape):
     n, h, w, cin, cout = shape
@@ -121,6 +123,51 @@ def test_conv3x3_kernel(gen, dtype, tol, tile, shape):
     assert got.dtype == dtype and got.shape == (n, h, w, cout)
     assert not torch.backends.cuda.matmul.allow_tf32  # the plain version in full float32
     assert _rel_err(got, k3.conv3x3_plain(x.float(), wgt.float())) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", k3.TILES)
+def test_conv3x3_float32_odd_channels(gen, tile):
+    # channel counts off 8: the float32 kernel's scalar load path
+    x = torch.randn((1, 7, 9, 5), generator=gen, device="cuda")
+    wgt = torch.randn((3, 3, 5, 11), generator=gen, device="cuda") * 0.1
+    got = k3.conv3x3(x, wgt, tile)
+    assert _rel_err(got, k3.conv3x3_plain(x, wgt)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_conv3x3_bf16_takes_the_plan(gen):
+    n, h, w, cin, cout = 2, 40, 40, 64, 128
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    wgt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    before = k3.LAUNCHES
+    got = k3.conv3x3(x, wgt)
+    assert k3.LAUNCHES == before + 1
+    assert _rel_err(got, k3.conv3x3_plain(x.float(), wgt.float())) <= 2.0 ** -8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,match", [
+    ("cin_off_8", "multiples of 8"),    # (1, 7, 9, 5 -> 11): Cin and Cout off 8
+    ("cout_off_8", "multiples of 8"),
+    ("misaligned_x", "16-byte"),
+    ("misaligned_w", "16-byte"),
+])
+def test_conv3x3_bf16_refuses_what_tma_cannot_read(gen, case, match):
+    bf = torch.bfloat16
+    shapes = {"cin_off_8": ((1, 7, 9, 5), 11), "cout_off_8": ((1, 7, 9, 16), 12)}
+    xs, cout = shapes.get(case, ((2, 8, 16, 16), 16))
+    x = torch.randn(xs, generator=gen, device="cuda").to(bf)
+    wgt = torch.randn((3, 3, xs[3], cout), generator=gen, device="cuda").to(bf)
+    if case == "misaligned_x":  # contiguous, one element past a 16-byte boundary
+        x = torch.empty(x.numel() + 1, dtype=bf, device="cuda")[1:].view(xs).copy_(x)
+    if case == "misaligned_w":
+        wgt = torch.empty(wgt.numel() + 1, dtype=bf, device="cuda")[1:].view(
+            wgt.shape).copy_(wgt)
+    before = k3.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        k3.conv3x3(x, wgt)
+    assert k3.LAUNCHES == before
 
 
 @pytest.mark.cuda
