@@ -15,13 +15,17 @@ line:
      volumes: once to warm up (recording every GroupNorm and attention shape
      it meets), once with the kernels' launch counters set to 0 (each must
      equal the main path's GroupNorm / attention call count), then timed;
+     then one UNet forward under torch.profiler: K1's and K2's device time
+     in it (K1 against the kernels its planner gives each call);
   4. kernels: each kernel against its plain PyTorch version on the card at
      every shape phase 3 met, bf16 inputs, the plain version in float32 from
      the same bf16 tensors; kernel (CUDA events around 20 back-to-back
      calls), device (torch.profiler: the kernels a call launches, from a
-     trace that holds every one of them; K2 split into QKV GEMM, core and
-     output GEMM), plain, library (one PyTorch call, used nowhere in the
-     port) and bound times;
+     trace that holds every one of them, K1's count from its plan; K2 split
+     into QKV GEMM, core and output GEMM), plain, library (one PyTorch call,
+     used nowhere in the port; back to back and device) and bound times;
+     K1's path and cluster size at each shape, and its device time a
+     request split into the UNet's and the VAE's calls;
   5. conv probe: the port's conv probe (scripts/perf_probe_conv.py) over
      stages A, B and C with the launch counters set to 0 (K3 must have
      launched as often as the probe called it, K1 and K2 never); then K3 at
@@ -37,6 +41,7 @@ Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import math
@@ -216,6 +221,11 @@ def k2_split(kernels: list) -> dict:
     return split
 
 
+def is_k1_kernel(name: str) -> bool:
+    # K1's kernels live in groupnorm_act.cu's anonymous namespace
+    return "::gn_cluster" in name or "::gn_partial" in name or "::gn_apply" in name
+
+
 def is_k2_kernel(name: str) -> bool:
     # K2's kernels live in attention.cu's anonymous namespace; cuBLAS's and
     # cuDNN's names carry no "::gemm_bias" or "::attention_core"
@@ -381,28 +391,45 @@ def phase_slice() -> dict:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        from diffusion_model_project_tpu_torch.models.layers import MultiheadSelfAttention
+        from diffusion_model_project_tpu_torch.models.layers import (
+            GroupNorm, MultiheadSelfAttention)
 
+        # K1's kernels in one forward: each GroupNorm call's planned kernel count
+        k1_plans, hooks = [], []
+        for m in pred.model.modules():
+            if isinstance(m, GroupNorm):
+                hooks.append(m.register_forward_pre_hook(lambda mod, args: k1_plans.append(
+                    k1.launch_plan(args[0], mod.num_groups, mod.act))))
         pred._unet_eps(x, z_cond, m_cond, t_batch)
         torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        k1_kernels = sum(p.kernels for p in k1_plans)
         k2_kernels = 3 * sum(isinstance(m, MultiheadSelfAttention) for m in pred.model.modules())
-        for _ in range(3):  # a trace that misses K2's kernels is taken again
+        for _ in range(3):  # a trace that misses K1's or K2's kernels is taken again
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 pred._unet_eps(x, z_cond, m_cond, t_batch)
                 torch.cuda.synchronize()
-            evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                         key=lambda e: e.time_range.start)
-            k2_evs = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-                      for e in evs if is_k2_kernel(e.name)]
-            if len(k2_evs) == k2_kernels:
+            evs = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in sorted(
+                (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)]
+            k1_evs = [e for e in evs if is_k1_kernel(e[0])]
+            k2_evs = [e for e in evs if is_k2_kernel(e[0])]
+            if (len(k1_evs), len(k2_evs)) == (k1_kernels, k2_kernels):
                 break
-            log(f"[profile] the forward's trace held {len(k2_evs)} of K2's kernels; again")
+            log(f"[profile] the forward's trace held {len(k1_evs)} of K1's {k1_kernels} and "
+                f"{len(k2_evs)} of K2's {k2_kernels} kernels; again")
         else:
-            raise RuntimeError(f"the profiled forward shows {len(k2_evs)} of K2's "
-                               f"{k2_kernels} kernels")
+            raise RuntimeError(f"the profiled forward shows {len(k1_evs)} of K1's {k1_kernels} "
+                               f"and {len(k2_evs)} of K2's {k2_kernels} kernels")
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=15)
     for ln in table.splitlines():
         log(f"[profile] {ln}")
+    k1_forward = sum(ms for _, ms in k1_evs)
+    log(f"[profile] K1 device time in this UNet forward: {k1_forward:.4f} ms over "
+        f"{len(k1_evs)} kernels ({len(k1_plans)} calls; "
+        + ", ".join(f"{v} {p}" for p, v in sorted(collections.Counter(
+            f"{p.path} k={p.k}" for p in k1_plans).items())) + ")")
     k2_forward = k2_split(k2_evs)
     log(f"[profile] K2 device time in this UNet forward (ms): "
         + ", ".join(f"{k} {v:.4f}" for k, v in k2_forward.items())
@@ -411,7 +438,8 @@ def phase_slice() -> dict:
     res = {"batch": B, "slices": S, "hw": HW, "steps": STEPS, "warmup_s": warm_s,
            "request_s": per_req, "volumes_per_s": B / per_req, "stage_ms": stages,
            "peak_bytes": peak, "launches": launches, "shapes": seen,
-           "profile_unet_forward": table, "profile_k2_ms": k2_forward}
+           "profile_unet_forward": table, "profile_k1_ms": k1_forward,
+           "profile_k2_ms": k2_forward}
     log(f"[slice] warm-up {warm_s:.2f} s; request {per_req * 1e3:.1f} ms; "
         f"{B / per_req:.3f} volumes/s; stages (ms) "
         + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
@@ -419,9 +447,16 @@ def phase_slice() -> dict:
     return res
 
 
-def _k1_case(shape, groups, act, gen):
+def k1_library_call(x, w, b, groups: int, act: str):
+    """K1's yardstick, used nowhere in the port: ``F.group_norm`` + act in x's dtype."""
     import torch.nn.functional as F
 
+    post = {"silu": F.silu, "relu": F.relu, "": lambda v: v}[act]
+    wb, bb = w.to(x.dtype), b.to(x.dtype)
+    return lambda: post(F.group_norm(x, groups, wb, bb))
+
+
+def _k1_case(shape, groups, act, gen):
     from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 
     c = shape[1]
@@ -432,13 +467,17 @@ def _k1_case(shape, groups, act, gen):
     ref = k1.groupnorm_act_plain(x.float(), w, b, groups, act)
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    post = {"silu": F.silu, "relu": F.relu, "": lambda v: v}[act]
+    library = k1_library_call(x, w, b, groups, act)
+    p = k1.launch_plan(x, groups, act)
     times = {
         "ms": sync_ms(lambda: k1.groupnorm_act(x, w, b, groups, act)),
         "plain_ms": sync_ms(lambda: k1.groupnorm_act_plain(x, w, b, groups, act)),
-        "library_ms": sync_ms(lambda: post(F.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype)))),
+        "library_ms": sync_ms(library),
         "device_ms": device_ms(lambda: k1.groupnorm_act(x, w, b, groups, act),
-                               counter=lambda: k1.LAUNCHES, per_launch=2),
+                               counter=lambda: k1.LAUNCHES, per_launch=p.kernels),
+        "library_device_ms": library_device_ms(library),
+        "plan": {"path": p.path, "k": p.k, "kernels": p.kernels, "blocks": p.grid[0] * p.grid[1],
+                 "slice_bytes": p.slice * x.element_size(), "aligned": p.aligned},
     }
     n = x.numel()
     nbytes = 2 * n * 2 + 2 * c * 4          # bf16 x read + y written, f32 affine
@@ -475,6 +514,7 @@ def _k2_case(shape, heads, gen):
         "ms": sync_ms(lambda: k2.fused_attention(*args, heads)),
         "plain_ms": sync_ms(lambda: multihead_attention(*args, heads)),
         "library_ms": sync_ms(library),
+        "library_device_ms": library_device_ms(library),
     }
     iters = 10
     kernels = device_kernels(lambda: k2.fused_attention(*args, heads), iters, keep=is_k2_kernel,
@@ -506,18 +546,34 @@ def phase_kernels(shapes: dict, launches: dict) -> list:
                    bound_by=bound_by, bytes=nbytes, flops=flops, bytes_ms=bytes_ms,
                    ops_ms=ops_ms, **times)
         rows.append(row)
+        lib_dev = times["library_device_ms"]
         log(f"[kernels] {key[0]:15s} {str(tuple(shape)):26s} {label:20s} x{calls:<5d} "
             f"err {err:.3e} (rel {rel:.2e}, tol {tol:.2e}) | ms {times['ms']:.4f} "
             f"device {times['device_ms']:.4f} plain {times['plain_ms']:.4f} "
-            f"library {times['library_ms']:.4f} bound {bound_ms:.4f} ({bound_by})"
+            f"library {times['library_ms']:.4f} library device "
+            f"{'not measured' if lib_dev is None else f'{lib_dev:.4f}'} bound {bound_ms:.4f} "
+            f"({bound_by})"
             + ("".join(f" | {k} {v:.4f}" for k, v in times["device_split_ms"].items())
-               if "device_split_ms" in times else ""))
+               if "device_split_ms" in times else "")
+            + (f" | {times['plan']['path']} k={times['plan']['k']}, {times['plan']['kernels']} "
+               f"kernel(s), {times['plan']['blocks']} blocks of {times['plan']['slice_bytes']} "
+               "bytes" if "plan" in times else ""))
         if not rel <= tol:
             raise RuntimeError(f"{key[0]} {shape}: error {rel:.3e} above tolerance {tol:.3e}")
     for name, n in launches.items():
         if not any(r["kernel"] == name for r in rows):
             raise RuntimeError(f"no shape of {name} was checked")
-    return rows
+    k1_parts = {}
+    for part, ndim in (("unet", 4), ("vae", 5)):
+        rs = [r for r in rows if r["kernel"] == "groupnorm_act" and len(r["shape"]) == ndim]
+        k1_parts[part] = {k: sum(r[k] * r["calls_per_request"] for r in rs)
+                          for k in ("device_ms", "bound_ms", "ms")}
+        k1_parts[part]["calls"] = sum(r["calls_per_request"] for r in rs)
+    log("[kernels] K1 a request (ms): " + "; ".join(
+        f"{part} ({v['calls']} calls) device {v['device_ms']:.3f}, bound {v['bound_ms']:.3f}, "
+        f"back to back {v['ms']:.3f}" for part, v in k1_parts.items())
+        + f"; total device {sum(v['device_ms'] for v in k1_parts.values()):.3f}")
+    return rows, k1_parts
 
 
 def phase_conv_probe() -> tuple:
@@ -641,12 +697,14 @@ def summarize(rows: list, launches: dict) -> list:
     for name, (source, replaces) in meta.items():
         rs = [r for r in rows if r["kernel"] == name]
         tot = lambda k: sum(r[k] * r["calls_per_request"] for r in rs)
+        lib_dev = [r.get("library_device_ms") for r in rs]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rs),
                     "ms": tot("ms"), "device_ms": tot("device_ms"), "plain_ms": tot("plain_ms"),
                     "bound_ms": tot("bound_ms"),
                     "bound_by": "bytes" if tot("bytes_ms") >= tot("ops_ms") else "operations",
-                    "library_ms": tot("library_ms")})
+                    "library_ms": tot("library_ms"),
+                    "library_device_ms": None if None in lib_dev else tot("library_device_ms")})
     return out
 
 
@@ -667,7 +725,7 @@ def main() -> int:
     sl = phase_slice()
     tallies.append(profiler_check("after the slice"))
     mark = dict(PROFILER)
-    rows = phase_kernels(sl["shapes"], sl["launches"])
+    rows, k1_parts = phase_kernels(sl["shapes"], sl["launches"])
     tallies.append(tally("kernels", mark))
     cvc = phase_card_vs_cpu()
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches})
@@ -675,7 +733,8 @@ def main() -> int:
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
         {"key": list(map(str, k)), "calls": v} for k, v in sl["shapes"].items()]},
-        "kernel_rows": rows + conv_rows, "conv_probe": probed, "card_vs_cpu": cvc,
+        "kernel_rows": rows + conv_rows, "k1_request_ms": k1_parts, "conv_probe": probed,
+        "card_vs_cpu": cvc,
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -4,41 +4,96 @@
 //   diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py::fused_groupnorm_act
 // (one program per sample with the whole (spatial, C) slab in VMEM).
 //
-// Bound on the H100: memory. The work is a few flops per element, so the
-// floor is reading x once and writing y once at 3.35 TB/s. A group is one
-// contiguous span of (C/G)*prod(spatial) elements, and a VAE group at
-// 11x256^2x128 with G=32 holds 2.88 M elements: far past one block's shared
-// memory, so one block per sample, as on the TPU, cannot work here.
+// Bound on the H100: bytes. The work is a few flops per element, so the
+// floor is reading x once and writing y once at 3.35 TB/s: 7.1 ms of a
+// published DDIM-50 request at batch 2 (PERF.md). A group is one
+// contiguous span of L = (C/G) * prod(spatial) elements. The TPU's slab per
+// sample does not carry over: a block may hold 227 KB of shared memory, and
+// one UNet sample at level 1 is 512 KB, one VAE group at 11x256^2x128, G=32,
+// 5.5 MB. So a group is spread over the blocks of a thread-block cluster,
+// whose shared memory together holds up to 16 x 227 KB.
 //
-// Design: two launches.
-//   1. gn_partial: many blocks per group, each reduces one chunk of the
-//      group to (count, mean, M2) in float32. Each thread folds 16-byte
-//      vectors (mean and M2 of the vector exactly, then Chan's merge), then
-//      warps and the block merge with Chan's formula. This is as robust as
-//      the two-pass mean-then-E[(x-mean)^2] form but reads x once.
-//   2. gn_apply: the same grid. One warp of each block merges the group's
-//      chunk partials (a few hundred at most), then the block normalizes its
-//      chunk, applies the per-channel affine (channel = offset / spatial)
-//      and the activation, and writes in the input dtype, 16 bytes a thread.
-// x is read twice in all (once for statistics, once to normalize); the
-// second read of a small group mostly hits the 50 MB L2.
-#include <cuda_runtime.h>
+// Two paths; ops/cuda/groupnorm_act.py::plan picks the path, the cluster
+// size k and the slice each block holds (the reckoning at the 19 published
+// pairs is in PERF.md: every UNet pair takes `cluster` with k = 4, or
+// 2 at its 8 KB groups, and slices of 4 to 128 KB; the VAE's 0.69-2.75 MB
+// groups take k = 8 or 16 and 88 or 176 KB slices; its 5.5 MB groups take
+// `split`). At the UNet's shapes a call is mostly latency, so the design
+// also keeps the chain from launch to the last store short.
+//
+//   cluster: one launch, x read once. Grid groups x k, cluster (k, 1, 1).
+//     1. Each block brings its contiguous slice of the group into shared
+//        memory: 1-D bulk copies (cp.async.bulk) of 8 KB, each completing
+//        on its own mbarrier, when the group's rows are 16-byte aligned;
+//        else one element a thread. Shared memory, not registers, holds the
+//        slice at every size: one path from 4 KB to 227 KB a block, and a
+//        bulk copy spends no registers or instructions of the block. The
+//        slice's (gamma, beta) are loaded while the copies are in flight.
+//     2. Each thread sums x - shift and (x - shift)^2 of its vectors as their
+//        piece lands, the shift the slice's first element (close to the
+//        data, so a large mean costs no digits); the block adds the sums by
+//        xor butterflies and forms its (count, mean, M2) in float32.
+//     3. Lane r of warp 0 stores the block's partial into slot `rank` of
+//        block r with st.async, which counts it on block r's own mbarrier
+//        (after one relaxed cluster barrier: every block has started). Each
+//        block merges the k partials with Chan's formula in a fixed
+//        butterfly, so every block of a group holds bit-identical
+//        statistics. No block leaves before its k partials have landed, so
+//        no store reaches a block that has left: no barrier at the end.
+//     4. The block normalizes its slice from shared memory: the channel is
+//        stepped without a division, gamma * rstd and beta stay in registers
+//        while it lasts, y leaves in 16-byte stores. SiLU in bf16 is one
+//        tanh.approx, in float32 exp and a division (see activate).
+//   split: groups past a cluster's capacity; two launches, x read twice.
+//     gn_partial holds 64 KB of a group a block (as in 1-2) and writes its
+//     (count, mean, M2); gn_apply brings its chunk in the same way while
+//     warp 0 merges the group's partials (a fixed order, the same result in
+//     every block), then normalizes it as in 4. The grid is chunks x groups:
+//     thousands of blocks at the published shape.
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_mainloop.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace dm_sm90;
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;      // ops/cuda/groupnorm_act.py MAX_CLUSTER
+constexpr uint32_t kPiece = 8192;    // bytes a bulk copy: one 16-byte vector a thread
+constexpr int kMaxPieces = 32;       // pieces of the largest slice, one mbarrier each
+static_assert(kPiece / 16 == kThreads, "a thread takes one vector of each piece");
+static_assert(kMaxPieces * kPiece >= (uint32_t)SMEM_LIMIT, "a barrier for every piece");
+// the header of a block's shared memory, in bytes: [0, 8 kMaxPieces) the
+// pieces' mbarriers, [kXbar, +8) the mbarrier of the cluster's partials,
+// [kSlots, +16 kMaxCluster) the cluster's (count, mean, M2), one slot a rank,
+// [kRed, +8 kWarps) the warps' sums, [kStat, +8) gn_apply's (mean, rstd);
+// then the slice, then (gamma, beta) of the slice's channels
+constexpr int kXbar = 8 * kMaxPieces, kSlots = kXbar + 16, kRed = kSlots + 16 * kMaxCluster,
+              kStat = kRed + 8 * kWarps, kHeader = 768;
+static_assert(kStat + 8 <= kHeader, "the header's layout");
+
+__host__ __device__ constexpr long long round16(long long bytes) { return (bytes + 15) / 16 * 16; }
+
+// must equal ops/cuda/groupnorm_act.py::gn_smem; `channels` (gamma, beta)
+// pairs (slice / S + 2 on the cluster path, which holds them; 0 on split)
+constexpr long long gn_smem(long long slice, int elem_bytes, long long channels) {
+  return kHeader + round16(slice * elem_bytes) + round16(8 * channels);
+}
 
 struct Stats {
   float n, mean, m2;
 };
 
+// Chan's merge of two (count, mean, M2); an empty side returns the other exactly
 __device__ __forceinline__ Stats merge(Stats a, Stats b) {
   float n = a.n + b.n;
   if (n == 0.f) return a;
   float d = b.mean - a.mean;
-  float fb = b.n / n;
+  float fb = __fdividef(b.n, n);  // counts: the approximate quotient is near exact
   Stats r;
   r.n = n;
   r.mean = a.mean + d * fb;
@@ -46,6 +101,7 @@ __device__ __forceinline__ Stats merge(Stats a, Stats b) {
   return r;
 }
 
+// Chan's merge over a warp by xor shuffles; lane 0's result is used
 __device__ __forceinline__ Stats warp_merge(Stats s) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -58,17 +114,33 @@ __device__ __forceinline__ Stats warp_merge(Stats s) {
   return s;
 }
 
-__device__ __forceinline__ Stats block_merge(Stats s) {
-  __shared__ Stats warp_stats[kThreads / 32];
+// The block's (count, mean, M2) of n elements from each thread's sums of
+// (x - shift) and (x - shift)^2 about one shift for the whole block, an
+// element of its slice: close to the data, so the sums lose no digits to a
+// large mean, and plain adds reduce them (an xor butterfly a warp, then every
+// warp over the warps). The same bits in every thread.
+__device__ __forceinline__ Stats block_stats(float s1, float s2, float shift, int n, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  s = warp_merge(s);
-  if (lane == 0) warp_stats[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    s = lane < kThreads / 32 ? warp_stats[lane] : Stats{0.f, 0.f, 0.f};
-    s = warp_merge(s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
   }
-  return s;  // valid in thread 0
+  if (lane == 0) {
+    red[2 * warp] = s1;
+    red[2 * warp + 1] = s2;
+  }
+  __syncthreads();
+  s1 = lane < kWarps ? red[2 * lane] : 0.f;
+  s2 = lane < kWarps ? red[2 * lane + 1] : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  if (n == 0) return Stats{0.f, 0.f, 0.f};
+  const float m = __fdividef(s1, (float)n);
+  return Stats{(float)n, shift + m, fmaxf(s2 - s1 * m, 0.f)};
 }
 
 template <typename T> struct Vec;
@@ -80,11 +152,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
 
-__device__ __forceinline__ void load_vec(const float* p, float* v) {
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
   float4 a = *reinterpret_cast<const float4*>(p);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[8]) {
   uint4 a = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
 #pragma unroll
@@ -94,10 +166,10 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
     v[2 * i + 1] = f.y;
   }
 }
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[8]) {
   uint4 a;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
 #pragma unroll
@@ -105,134 +177,463 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = a;
 }
 
-__device__ __forceinline__ float activate(float y, int act) {
-  if (act == 1) return y / (1.f + __expf(-y));  // silu
-  if (act == 2) return fmaxf(y, 0.f);           // relu
+// silu, relu or nothing. SiLU is y * sigmoid(y) = h + h tanh(h), h = y / 2:
+// one tanh.approx (relative error 2^-11) where the output is bf16, whose
+// rounding (2^-9) is larger; exp and a division (two SFU operations, the
+// normalize loop's bottleneck at 16 a cycle an SM) in float32.
+template <typename T, int ACT>
+__device__ __forceinline__ float activate(float y) {
+  if (ACT == 1) {
+    if (sizeof(T) == 2) {
+      const float h = 0.5f * y;
+      float t;
+      asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(h));
+      return fmaf(h, t, h);
+    }
+    return __fdividef(y, 1.f + __expf(-y));
+  }
+  if (ACT == 2) return fmaxf(y, 0.f);
   return y;
 }
 
-// grid (nchunks, num_groups_total); partials[g][chunk] = (count, mean, M2)
+__device__ __forceinline__ int pieces_of(int n, int elem_bytes) {
+  return (int)(((uint32_t)n * elem_bytes + kPiece - 1) / kPiece);
+}
+
+// Thread 0 sets up one mbarrier a piece of n elements (and `xbar`, the
+// cluster's, when given), then fences them for the cluster and the copies.
+template <typename T, bool kVec>
+__device__ __forceinline__ void init_barriers(int n, uint64_t* bars, uint64_t* xbar) {
+  if (threadIdx.x == 0) {
+    if (xbar) mbar_init(xbar, 1);
+    if (kVec)
+      for (int p = 0; p < pieces_of(n, sizeof(T)); ++p) mbar_init(bars + p, 1);
+    fence_barrier_init();
+  }
+}
+
+// Thread 0 starts the bulk copies of the n elements at src (device memory)
+// into dst (shared memory), one kPiece-byte piece on each mbarrier; the
+// block has synchronized since init_barriers.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_partial(const T* __restrict__ x, float* __restrict__ partials, long long L,
-           int chunk, int nchunks, int vec_ok) {
+__device__ __forceinline__ void start_load(T* dst, const T* src, int n, uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)n * sizeof(T);
+    for (int p = 0; p < pieces_of(n, sizeof(T)); ++p) {
+      const uint32_t off = p * kPiece, len = min(kPiece, bytes - off);
+      mbar_expect_tx(bars + p, len);
+      bulk_load_1d(reinterpret_cast<uint8_t*>(dst) + off,
+                   reinterpret_cast<const uint8_t*>(src) + off, len, bars + p);
+    }
+  }
+}
+
+// One thread's sums of (x - shift) and (x - shift)^2 over its elements of
+// the n at src, held at dst in shared memory; the shift is the first element.
+// kVec: the bulk copies start_load started, summed piece by piece as they
+// land (thread t takes vector t of each piece); else each thread copies and
+// sums elements t, t + kThreads, ...
+struct Sums {
+  float s1, s2, shift;
+};
+
+template <typename T, bool kVec>
+__device__ __forceinline__ Sums hold_and_sum(T* dst, const T* src, int n, uint64_t* bars) {
   constexpr int V = Vec<T>::N;
-  const long long g = blockIdx.y;
-  const T* base = x + g * L;
-  const long long lo = (long long)blockIdx.x * chunk;
-  const long long hi = min(L, lo + chunk);
-  Stats s = {0.f, 0.f, 0.f};
-  if (vec_ok) {
-    for (long long i = lo + (long long)threadIdx.x * V; i < hi; i += (long long)kThreads * V) {
-      float v[V];
-      load_vec(base + i, v);
-      float m = 0.f;
+  float s1 = 0.f, s2 = 0.f, shift = 0.f;
+  if (kVec) {
+    for (int p = 0; p < pieces_of(n, sizeof(T)); ++p) {
+      mbar_wait(bars + p, 0);
+      if (p == 0) shift = to_f32(dst[0]);
+      const int v = p * kThreads + threadIdx.x;
+      if (v < n / V) {
+        float e[V];
+        load_vec(dst + v * V, e);
 #pragma unroll
-      for (int k = 0; k < V; ++k) m += v[k];
-      m *= 1.f / V;
-      float q = 0.f;
-#pragma unroll
-      for (int k = 0; k < V; ++k) q += (v[k] - m) * (v[k] - m);
-      s = merge(s, Stats{(float)V, m, q});
+        for (int j = 0; j < V; ++j) {
+          const float t = e[j] - shift;
+          s1 += t;
+          s2 += t * t;
+        }
+      }
     }
   } else {
-    for (long long i = lo + threadIdx.x; i < hi; i += kThreads)
-      s = merge(s, Stats{1.f, to_f32(base[i]), 0.f});
+    if (n > 0) shift = to_f32(src[0]);
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const T v = src[i];
+      dst[i] = v;
+      const float t = to_f32(v) - shift;
+      s1 += t;
+      s2 += t * t;
+    }
   }
-  s = block_merge(s);
+  return Sums{s1, s2, shift};
+}
+
+// y = act((x - mean) * rstd * gamma[c] + beta[c]) for the n elements of a
+// group from its element lo on, channel c = i / S: src holds x[lo, lo + n)
+// in shared or device memory, dst is y + lo; (gamma, beta) of channel c come
+// from tab[c - q0] in shared memory (kTable) or from gamma, beta, which
+// start at the group's first channel. A thread takes every kThreads-th
+// vector (element), the ones it summed, and steps its channel (q, r) by
+// adds; gamma * rstd and beta stay in registers while the channel does.
+template <typename T, bool kVec, int ACT, bool kTable>
+__device__ __forceinline__ void normalize(const T* src, T* __restrict__ dst, int lo, int n, int S,
+                                          const float* __restrict__ gamma,
+                                          const float* __restrict__ beta, const float2* tab,
+                                          int q0, float mean, float rstd) {
+  constexpr int V = Vec<T>::N;
+  auto affine = [&](int q) {
+    return kTable ? tab[q - q0] : make_float2(gamma[q], beta[q]);
+  };
+  if (kVec && S % V == 0) {  // each vector lies in one channel of S / V vectors
+    const int sv = S / V, nv = n / V, first = lo / V + threadIdx.x;
+    const int dq = kThreads / sv, dr = kThreads - dq * sv;
+    int q = first / sv, r = first - q * sv, qc = -1;
+    float a = 0.f, b = 0.f;
+    for (int v = threadIdx.x; v < nv; v += kThreads) {
+      if (q != qc) {
+        qc = q;
+        const float2 gb = affine(q);
+        a = gb.x * rstd;
+        b = gb.y;
+      }
+      float e[V];
+      load_vec(src + v * V, e);
+#pragma unroll
+      for (int j = 0; j < V; ++j) e[j] = activate<T, ACT>((e[j] - mean) * a + b);
+      store_vec(dst + v * V, e);
+      q += dq;
+      r += dr;
+      if (r >= sv) {
+        r -= sv;
+        ++q;
+      }
+    }
+  } else if (kVec) {  // vectors straddle channels: the channel steps per element
+    const int nv = n / V, first = lo + threadIdx.x * V;
+    const int dq = kThreads * V / S, dr = kThreads * V - dq * S;
+    int q = first / S, r = first - q * S;
+    for (int v = threadIdx.x; v < nv; v += kThreads) {
+      float e[V];
+      load_vec(src + v * V, e);
+      int qq = q, rr = r;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float2 gb = affine(qq);
+        e[j] = activate<T, ACT>((e[j] - mean) * (gb.x * rstd) + gb.y);
+        if (++rr == S) {
+          rr = 0;
+          ++qq;
+        }
+      }
+      store_vec(dst + v * V, e);
+      q += dq;
+      r += dr;
+      if (r >= S) {
+        r -= S;
+        ++q;
+      }
+    }
+  } else {  // the scalar variant: one element a step
+    const int first = lo + threadIdx.x, dq = kThreads / S, dr = kThreads - dq * S;
+    int q = first / S, r = first - q * S;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float2 gb = affine(q);
+      from_f32(activate<T, ACT>((to_f32(src[i]) - mean) * (gb.x * rstd) + gb.y), dst + i);
+      q += dq;
+      r += dr;
+      if (r >= S) {
+        r -= S;
+        ++q;
+      }
+    }
+  }
+}
+
+// Path cluster: grid (groups x k), cluster (k, 1, 1). Block `rank` of
+// cluster g holds elements [rank * slice, min(L, (rank + 1) * slice)) of
+// group g.
+template <typename T, bool kVec, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_cluster(const T* __restrict__ x, const float* __restrict__ gamma,
+           const float* __restrict__ beta, T* __restrict__ y, int L, int S, int G, int cpg,
+           int slice, float eps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + kXbar);
+  float* slots = reinterpret_cast<float*>(smem + kSlots);
+  float* red = reinterpret_cast<float*>(smem + kRed);
+  T* data = reinterpret_cast<T*>(smem + kHeader);
+  float2* tab = reinterpret_cast<float2*>(smem + kHeader + round16((long long)slice * sizeof(T)));
+  const int k = (int)cluster_nctarank(), rank = (int)cluster_ctarank();
+  const int g = (int)blockIdx.x / k;
+  const int lo = min(L, rank * slice), n = min(L - lo, slice);
+  const T* src = x + (long long)g * L + lo;
+
+  init_barriers<T, kVec>(n, bars, k > 1 ? xbar : nullptr);
+  // (gamma, beta) of the slice's channels: the first into registers before
+  // the copies start, into the table once they have landed
+  const int c0 = g % G * cpg, q0 = lo / S, nch = n > 0 ? (lo + n - 1) / S - q0 + 1 : 0;
+  const int ch = c0 + q0 + threadIdx.x;
+  const float2 gb = threadIdx.x < nch ? make_float2(gamma[ch], beta[ch]) : make_float2(0.f, 0.f);
+  __syncthreads();  // the barriers are set up
+  if (kVec) start_load(data, src, n, bars);
+  if (k > 1) cluster_arrive_relaxed();  // waited below, before a peer is touched
+  const Sums sums = hold_and_sum<T, kVec>(data, src, n, bars);
+  if (threadIdx.x < nch) tab[threadIdx.x] = gb;  // made visible by block_stats' barrier
+  for (int i = threadIdx.x + kThreads; i < nch; i += kThreads)
+    tab[i] = make_float2(gamma[c0 + q0 + i], beta[c0 + q0 + i]);
+  Stats t = block_stats(sums.s1, sums.s2, sums.shift, n, red);
+  if (k > 1) {
+    // every block of the cluster has started and set up its barrier; lane r
+    // of warp 0 stores this block's partial into slot `rank` of block r,
+    // which counts it on its own barrier. No block leaves before its k
+    // partials have landed, so no store reaches a block that has left.
+    cluster_wait();
+    if (threadIdx.x == 0) mbar_expect_tx(xbar, 16 * k);
+    if (threadIdx.x < k)
+      st_async_peer(slots + 4 * rank, xbar, threadIdx.x, make_float4(t.n, t.mean, t.m2, 0.f));
+    mbar_wait(xbar, 0);
+    // in every warp, lane r takes rank r's partial; a butterfly over the k
+    // lanes, a fixed tree, leaves the same statistics in lane 0 of every warp
+    // of every block of the cluster
+    const int lane = threadIdx.x & 31;
+    t = Stats{0.f, 0.f, 0.f};
+    if (lane < k) {
+      const float4 p = reinterpret_cast<const float4*>(slots)[lane];
+      t = Stats{p.x, p.y, p.z};
+    }
+    for (int off = 1; off < k; off <<= 1) {
+      Stats o;
+      o.n = __shfl_xor_sync(0xffffffffu, t.n, off);
+      o.mean = __shfl_xor_sync(0xffffffffu, t.mean, off);
+      o.m2 = __shfl_xor_sync(0xffffffffu, t.m2, off);
+      t = merge(t, o);
+    }
+    t = Stats{__shfl_sync(0xffffffffu, t.n, 0), __shfl_sync(0xffffffffu, t.mean, 0),
+              __shfl_sync(0xffffffffu, t.m2, 0)};
+  }
+  const float rstd = rsqrtf(fmaxf(__fdividef(t.m2, t.n), 0.f) + eps);
+  normalize<T, kVec, ACT, true>(data, y + (long long)g * L + lo, lo, n, S, nullptr, nullptr,
+                                tab, q0, t.mean, rstd);
+}
+
+// Path split, launch 1: grid (chunks, groups). Block (c, g) holds elements
+// [c * chunk, min(L, (c + 1) * chunk)) of group g and writes their
+// (count, mean, M2) to partials[g][c].
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_partial(const T* __restrict__ x, float* __restrict__ partials, int L, int chunk) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* red = reinterpret_cast<float*>(smem + kRed);
+  T* data = reinterpret_cast<T*>(smem + kHeader);
+  const int g = blockIdx.y, lo = blockIdx.x * chunk, n = min(L - lo, chunk);
+  const T* src = x + (long long)g * L + lo;
+  init_barriers<T, kVec>(n, bars, nullptr);
+  __syncthreads();
+  if (kVec) start_load(data, src, n, bars);
+  const Sums sums = hold_and_sum<T, kVec>(data, src, n, bars);
+  const Stats s = block_stats(sums.s1, sums.s2, sums.shift, n, red);
   if (threadIdx.x == 0) {
-    float* p = partials + (g * nchunks + blockIdx.x) * 3;
+    float* p = partials + ((long long)g * gridDim.x + blockIdx.x) * 3;
     p[0] = s.n;
     p[1] = s.mean;
     p[2] = s.m2;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Path split, launch 2: the same grid. The block's chunk comes into shared
+// memory (kVec) while warp 0 merges the group's partials (lane l those of
+// chunks l, l + 32, ..., then the lanes by xor shuffles; lane 0's result,
+// the same in every block of the group); then the block normalizes it.
+template <typename T, bool kVec, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
 gn_apply(const T* __restrict__ x, const float* __restrict__ gamma,
          const float* __restrict__ beta, const float* __restrict__ partials,
-         T* __restrict__ y, long long L, long long S, int G, int cpg, int chunk,
-         int nchunks, float eps, int act, int vec_ok) {
-  constexpr int V = Vec<T>::N;
-  __shared__ float s_mean, s_rstd;
-  const long long g = blockIdx.y;
+         T* __restrict__ y, int L, int S, int G, int cpg, int chunk, float eps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* stat = reinterpret_cast<float*>(smem + kStat);
+  T* data = reinterpret_cast<T*>(smem + kHeader);
+  const int g = blockIdx.y, nchunks = gridDim.x, lo = blockIdx.x * chunk;
+  const int n = min(L - lo, chunk);
+  const T* src = x + (long long)g * L + lo;
+  init_barriers<T, kVec>(n, bars, nullptr);
+  __syncthreads();
+  if (kVec) start_load(data, src, n, bars);
   if (threadIdx.x < 32) {
     Stats s = {0.f, 0.f, 0.f};
     for (int j = threadIdx.x; j < nchunks; j += 32) {
-      const float* p = partials + (g * nchunks + j) * 3;
+      const float* p = partials + ((long long)g * nchunks + j) * 3;
       s = merge(s, Stats{p[0], p[1], p[2]});
     }
     s = warp_merge(s);
     if (threadIdx.x == 0) {
-      s_mean = s.mean;
-      s_rstd = rsqrtf(fmaxf(s.m2 / s.n, 0.f) + eps);
+      stat[0] = s.mean;
+      stat[1] = rsqrtf(fmaxf(s.m2 / s.n, 0.f) + eps);
     }
   }
+  if (kVec)
+    for (int p = 0; p < pieces_of(n, sizeof(T)); ++p) mbar_wait(bars + p, 0);
   __syncthreads();
-  const float mean = s_mean, rstd = s_rstd;
-  const int ch0 = (int)(g % G) * cpg;
-  const T* xb = x + g * L;
-  T* yb = y + g * L;
-  const long long lo = (long long)blockIdx.x * chunk;
-  const long long hi = min(L, lo + chunk);
-  if (vec_ok) {
-    for (long long i = lo + (long long)threadIdx.x * V; i < hi; i += (long long)kThreads * V) {
-      float v[V];
-      load_vec(xb + i, v);
-      long long q = i / S, r = i - q * S;
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int ch = ch0 + (int)q;
-        v[k] = activate((v[k] - mean) * rstd * gamma[ch] + beta[ch], act);
-        if (++r == S) { r = 0; ++q; }
-      }
-      store_vec(yb + i, v);
-    }
-  } else {
-    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
-      const int ch = ch0 + (int)(i / S);
-      from_f32(activate((to_f32(xb[i]) - mean) * rstd * gamma[ch] + beta[ch], act), yb + i);
-    }
-  }
+  const int c0 = g % G * cpg;
+  normalize<T, kVec, ACT, false>(kVec ? data : src, y + (long long)g * L + lo, lo, n, S,
+                                 gamma + c0, beta + c0, nullptr, 0, stat[0], stat[1]);
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y,
-                   void* partials, long long groups_total, long long L, long long S,
-                   int G, int cpg, int chunk, float eps, int act, cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  const int nchunks = (int)((L + chunk - 1) / chunk);
-  const int vec_ok = (L % V == 0) && (chunk % V == 0) &&
-                     ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
-  dim3 grid(nchunks, (unsigned)groups_total);
-  gn_partial<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<float*>(partials), L, chunk, nchunks, vec_ok);
+// ------------------------------------------------------------------ host
+
+// cfg[] of dm_groupnorm_act (ops/cuda/groupnorm_act.py _CFG, in this order)
+enum Cfg { kDtype, kVecCfg, kAct, kSplit, kK, kSlice, kSmem, kGridX, kGridY, kL, kS, kG, kCpg };
+
+template <typename Kernel>
+cudaError_t allow(Kernel kernel, bool cluster) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err == cudaSuccess && cluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+template <typename T, bool kVec>
+cudaError_t allow_variant() {
+  cudaError_t err = allow(gn_partial<T, kVec>, false);
+  if (err == cudaSuccess) err = allow(gn_apply<T, kVec, 0>, false);
+  if (err == cudaSuccess) err = allow(gn_apply<T, kVec, 1>, false);
+  if (err == cudaSuccess) err = allow(gn_apply<T, kVec, 2>, false);
+  if (err == cudaSuccess) err = allow(gn_cluster<T, kVec, 0>, true);
+  if (err == cudaSuccess) err = allow(gn_cluster<T, kVec, 1>, true);
+  if (err == cudaSuccess) err = allow(gn_cluster<T, kVec, 2>, true);
+  return err;
+}
+
+// The shared-memory cap and non-portable clusters for every kernel, once per
+// device: attributes are caps, and setting them on every call costs host time.
+cudaError_t setup() {
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = allow_variant<float, false>();
+  if (err == cudaSuccess) err = allow_variant<float, true>();
+  if (err == cudaSuccess) err = allow_variant<__nv_bfloat16, false>();
+  if (err == cudaSuccess) err = allow_variant<__nv_bfloat16, true>();
+  done[dev] = err == cudaSuccess;
+  return err;
+}
+
+cudaLaunchConfig_t cluster_config(int grid, int k, int smem, cudaStream_t s,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = k;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, bool kVec, int ACT>
+cudaError_t launch(const int* cfg, const void* xv, const float* gamma, const float* beta,
+                   void* yv, float* partials, float eps, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  T* y = static_cast<T*>(yv);
+  const int k = cfg[kK], slice = cfg[kSlice], smem = cfg[kSmem], gx = cfg[kGridX],
+            gy = cfg[kGridY], L = cfg[kL], S = cfg[kS], G = cfg[kG], cpg = cfg[kCpg];
+  // the wrapper's plan against this file's layout and limits
+  if (slice < 1 || L < 1 || S < 1 || G < 1 || cpg < 1 || gx < 1 || gy < 1 ||
+      smem != gn_smem(slice, sizeof(T), cfg[kSplit] ? 0 : slice / S + 2) ||
+      smem > SMEM_LIMIT || (long long)cpg * S != L)
+    return cudaErrorInvalidValue;
+  if (kVec && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16 ||
+               (long long)L * sizeof(T) % 16 || (long long)slice * sizeof(T) % 16))
+    return cudaErrorInvalidValue;
+  if (!cfg[kSplit]) {
+    if (k < 1 || k > kMaxCluster || (k & (k - 1)) || gx % k || gy != 1 ||
+        (long long)k * slice < L)
+      return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t lc = cluster_config(gx, k, smem, s, &attr);
+    return cudaLaunchKernelEx(&lc, gn_cluster<T, kVec, ACT>, x, gamma, beta, y, L, S, G, cpg,
+                              slice, eps);
+  }
+  if (partials == nullptr || k != 1 || (long long)gx * slice < L ||
+      (long long)(gx - 1) * slice >= L)
+    return cudaErrorInvalidValue;
+  const dim3 grid(gx, gy);
+  gn_partial<T, kVec><<<grid, kThreads, smem, s>>>(x, partials, L, slice);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gn_apply<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const float*>(partials),
-      static_cast<T*>(y), L, S, G, cpg, chunk, nchunks, eps, act, vec_ok);
+  gn_apply<T, kVec, ACT><<<grid, kThreads, smem, s>>>(x, gamma, beta, partials, y, L, S, G,
+                                                      cpg, slice, eps);
   return cudaGetLastError();
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_act(const int* cfg, const void* x, const float* gamma, const float* beta,
+                       void* y, float* partials, float eps, cudaStream_t s) {
+  switch (cfg[kAct]) {
+    case 0: return launch<T, kVec, 0>(cfg, x, gamma, beta, y, partials, eps, s);
+    case 1: return launch<T, kVec, 1>(cfg, x, gamma, beta, y, partials, eps, s);
+    case 2: return launch<T, kVec, 2>(cfg, x, gamma, beta, y, partials, eps, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. act: 0 = none, 1 = silu, 2 = relu.
-// x, y: (N, C, S) contiguous; gamma, beta: float32 (C,);
-// partials: float32 scratch of groups_total * ceil(L / chunk) * 3.
-extern "C" int dm_groupnorm_act(int dtype, const void* x, const void* gamma,
-                                const void* beta, void* y, void* partials,
-                                long long groups_total, long long L, long long S,
-                                int G, int cpg, int chunk, float eps, int act,
+// The largest cluster (16, 8, ... 1) this device schedules with a block at
+// the full shared-memory cap, into *out (0 if none).
+extern "C" int dm_groupnorm_max_cluster(int* out) {
+  cudaError_t err = setup();
+  if (err != cudaSuccess) return (int)err;
+  *out = 0;
+  for (int k = kMaxCluster; k >= 1; k /= 2) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t lc = cluster_config(k, k, dm_sm90::SMEM_LIMIT, nullptr, &attr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, gn_cluster<__nv_bfloat16, true, 1>, &lc);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // a refused size is an answer, not a fault
+      continue;
+    }
+    if (clusters >= 1) {
+      *out = k;
+      break;
+    }
+  }
+  return 0;
+}
+
+// cfg: the launch's integers (Cfg order): dtype 0 = float32, 1 = bfloat16;
+// vec 1 = 16-byte rows (bulk copies, vectors); act 0 = none, 1 = silu,
+// 2 = relu; split; k; slice; smem; grid x, y; L; S = prod(spatial); G; C/G.
+// x, y: (N, C, S) contiguous; gamma, beta: float32 (C,); partials: float32
+// scratch of grid x * grid y * 3 on the split path, else unused.
+extern "C" int dm_groupnorm_act(const int* cfg, const void* x, const void* gamma,
+                                const void* beta, void* y, void* partials, float eps,
                                 void* stream) {
+  cudaError_t err = setup();
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(x, gamma, beta, y, partials, groups_total, L, S, G, cpg,
-                              chunk, eps, act, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, gamma, beta, y, partials, groups_total, L, S,
-                                      G, cpg, chunk, eps, act, s);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  float* p = static_cast<float*>(partials);
+  const int vec = cfg[kVecCfg];
+  if (cfg[kDtype] == 0)
+    return (int)(vec ? launch_act<float, true>(cfg, x, g, b, y, p, eps, s)
+                     : launch_act<float, false>(cfg, x, g, b, y, p, eps, s));
+  if (cfg[kDtype] == 1)
+    return (int)(vec ? launch_act<__nv_bfloat16, true>(cfg, x, g, b, y, p, eps, s)
+                     : launch_act<__nv_bfloat16, false>(cfg, x, g, b, y, p, eps, s));
   return (int)cudaErrorInvalidValue;
 }

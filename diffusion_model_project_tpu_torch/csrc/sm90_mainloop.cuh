@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for hand-written tensor-core kernels:
-// mbarriers, TMA tile loads (2-D to 4-D) and stores, a ring of shared-memory
+// Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
+// tile loads (2-D to 4-D) and stores, 1-D bulk loads, a ring of shared-memory
 // stages, wgmma shared-memory descriptors for 128-byte swizzled tiles and
-// the wgmma instructions themselves, all as inline PTX (no CuTe, so a source
-// builds in seconds), and the host's tensor-map encoding and shared-memory cap.
+// the wgmma instructions themselves, cluster barriers and asynchronous
+// stores into a peer block's shared memory, all as inline PTX (no CuTe, so a source builds
+// in seconds), and the host's tensor-map encoding and shared-memory cap.
 //
 // Layout contract. Every operand tile in shared memory is made of TMA boxes
 // of 64 bf16 columns (128 bytes) by R rows, loaded with 128-byte swizzle, one
@@ -125,6 +126,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// one contiguous global -> shared copy of `bytes` (a multiple of 16, at most
+// 2^20 - 1 a barrier phase), `src` and `dst` 16-byte aligned; the bytes count
+// toward `bar`'s expected transaction
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -275,6 +287,52 @@ __device__ __forceinline__ void mma_k64(float (&acc)[NACC], uint32_t a, uint32_t
 
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -------------------------------------------------------------- clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier, split: every thread of every block of the cluster
+// arrives, and later waits for all the others' arrivals. This arrival orders
+// nothing: it says "this block has started (and fenced its mbarriers' init)",
+// which a block must know of its peers before it touches their shared
+// memory. Both are .aligned: every thread of a warp executes them together.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Stores v at `local` in the shared memory of the cluster's block `rank`
+// (16-byte aligned); the 16 bytes count toward the transaction of that
+// block's mbarrier at `bar` (the same offset as this block's).
+__device__ __forceinline__ void st_async_peer(void* local, uint64_t* bar, uint32_t rank,
+                                              float4 v) {
+  uint32_t remote, remote_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote_bar)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(remote),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar)
+      : "memory");
 }
 
 // ------------------------------------------------------------------ host

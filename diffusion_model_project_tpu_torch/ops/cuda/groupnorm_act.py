@@ -4,23 +4,186 @@ Replaces ``diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py::
 fused_groupnorm_act``. On a CUDA tensor the wrapper launches the kernel or
 raises; on a CPU tensor it takes the plain version
 (``ops/basic.group_norm`` + activation).
+
+:func:`plan` picks the launch: path ``cluster`` (one launch; each group
+held in the shared memory of a thread-block cluster, x read once) or
+``split`` (statistics, then apply, for groups past a cluster's capacity).
+It is plain Python, so the CPU tests hold it to the card's limits. The
+wrapper validates and plans once per (shape, dtype, device, groups, act,
+alignment, weight and bias shapes and devices) and keeps the launch's
+integers in a cached array.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
 from ..basic import activation_function, group_norm
 from . import _lib
+from ._sm90 import SMEM_LIMIT, SMS, cdiv
 
 _ACT_CODES = {"": 0, "silu": 1, "relu": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# elements of a group that one block reduces and normalizes (a multiple of 8)
-CHUNK = 8192
+HEADER = 768                 # bytes of a block's shared memory before its slice (csrc kHeader)
+# the cluster size k: a slice past MAX_SLICE_BYTES halves (two blocks an SM
+# overlap one's load with the other's stores); k also doubles while 2 x groups
+# x k <= SMS, the doubled slice holding MIN_SLICE_BYTES (more SMs pull a small
+# group). Both from a sweep of k on the H100 at the published pairs (PERF.md).
+MAX_SLICE_BYTES = 128 * 1024
+MIN_SLICE_BYTES = 4 * 1024
+SPLIT_CHUNK_BYTES = 64 * 1024  # bytes of a group each block of the split path takes
+MAX_CLUSTER = 16             # the largest cluster the kernel is launched with (non-portable)
+MAX_GROUP_LEN = 2 ** 24      # counts are carried in float32, exact below this
+MAX_GROUPS = 65535           # the split path's grid.y
 
 # wrapper calls that launched the kernel (not counting CPU calls)
 LAUNCHES = 0
+
+
+@dataclass(frozen=True)
+class GNPlan:
+    path: str        # "cluster" (one launch) or "split" (statistics, then apply)
+    k: int           # blocks a cluster (1 on split)
+    slice: int       # elements of a group each block holds (the last block the rest)
+    smem: int        # dynamic shared memory a block, bytes (split: the statistics kernel's)
+    grid: tuple      # (x, y) blocks: cluster (groups x k, 1); split (chunks a group, groups)
+    kernels: int     # kernels a call launches
+    group_len: int   # elements a group: (C / G) x prod(spatial)
+    aligned: bool    # 16-byte rows: bulk copies and 16-byte vectors, else the scalar variant
+
+
+def gn_smem(slice_: int, elem_bytes: int, channels: int) -> int:
+    """A block's dynamic shared memory: the header (the pieces' mbarriers,
+    the block's (count, mean, M2), reduction scratch), its slice and
+    ``channels`` (gamma, beta) float pairs, each rounded up to 16 bytes
+    (``csrc`` ``gn_smem``)."""
+    return HEADER + cdiv(slice_ * elem_bytes, 16) * 16 + cdiv(8 * channels, 16) * 16
+
+
+def table_channels(slice_: int, spatial: int) -> int:
+    """The (gamma, beta) pairs a cluster block keeps: its slice's channels at most."""
+    return slice_ // spatial + 2
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, c: int, spatial: int, groups: int, elem_bytes: int, aligned: bool,
+         max_cluster: int = MAX_CLUSTER) -> GNPlan:
+    """Launch plan of K1 on x (n, c, *spatial) with ``spatial`` = prod(spatial),
+    ``groups`` groups, ``elem_bytes`` bytes an element. ``aligned``: every
+    group starts on a 16-byte boundary (x does and L x elem_bytes % 16 == 0).
+    ``max_cluster``: the largest cluster the card schedules at full shared
+    memory (:func:`max_cluster`). Raises outside the kernel's range.
+
+    The rule for the cluster size k, a power of two, on L = (C/G) x spatial
+    elements a group:
+      1. k starts at the smallest power of two whose slice, cdiv(L, k)
+         rounded up to 16 bytes, fits a block with the header and its
+         channels' (gamma, beta) (:func:`gn_smem` <= SMEM_LIMIT);
+      2. if that k exceeds ``max_cluster``, the group takes the split path;
+      3. else k doubles, up to ``max_cluster``, while the slice holds more
+         than MAX_SLICE_BYTES, or while 2 x groups x k <= SMS and the doubled
+         slice still holds MIN_SLICE_BYTES.
+    At the published pairs this gives k = 4 at every UNet pair but the 8 KB
+    groups (k = 2) and 88 KB slices at the VAE's 0.69 and 1.38 MB groups.
+    The split path takes SPLIT_CHUNK_BYTES of a group a block, in two launches.
+    """
+    if min(n, c, spatial, groups) < 1:
+        raise ValueError(f"groupnorm_act: empty shape {(n, c, spatial)} or groups {groups}")
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"groupnorm_act: {elem_bytes}-byte elements not supported")
+    if max_cluster < 1 or max_cluster > MAX_CLUSTER or max_cluster & (max_cluster - 1):
+        raise ValueError(f"groupnorm_act: max_cluster {max_cluster} is not a power of two "
+                         f"<= {MAX_CLUSTER}")
+    group_len = c // groups * spatial
+    groups_total = n * groups
+    if group_len >= MAX_GROUP_LEN or groups_total > MAX_GROUPS:
+        raise ValueError(f"groupnorm_act: group of {group_len} elements x {groups_total} "
+                         "groups is outside the kernel's range")
+    aligned = bool(aligned) and group_len * elem_bytes % 16 == 0
+    align = 16 // elem_bytes if aligned else 1
+
+    def slice_of(k: int) -> int:
+        return cdiv(cdiv(group_len, k), align) * align
+
+    def smem_of(k: int) -> int:
+        return gn_smem(slice_of(k), elem_bytes, table_channels(slice_of(k), spatial))
+
+    k = 1
+    while k <= max_cluster and smem_of(k) > SMEM_LIMIT:
+        k *= 2
+    if k > max_cluster:
+        chunk = SPLIT_CHUNK_BYTES // elem_bytes
+        return GNPlan("split", 1, chunk, gn_smem(chunk, elem_bytes, 0),
+                      (cdiv(group_len, chunk), groups_total), 2, group_len, aligned)
+    while 2 * k <= max_cluster and (
+            slice_of(k) * elem_bytes > MAX_SLICE_BYTES
+            or (2 * groups_total * k <= SMS
+                and slice_of(2 * k) * elem_bytes >= MIN_SLICE_BYTES)):
+        k *= 2
+    return GNPlan("cluster", k, slice_of(k), smem_of(k), (groups_total * k, 1), 1,
+                  group_len, aligned)
+
+
+@functools.lru_cache(maxsize=None)
+def max_cluster(index: int) -> int:
+    """The largest cluster (16 or less) that CUDA device ``index`` schedules at
+    full shared memory, asked of the card once (``cudaOccupancyMaxActiveClusters``)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _lib.check(_lib.lib().dm_groupnorm_max_cluster(ctypes.byref(out)),
+                   "groupnorm_act max_cluster")
+    if out.value < 1:
+        raise RuntimeError(f"groupnorm_act: device {index} schedules no cluster")
+    return out.value
+
+
+# cfg[] of dm_groupnorm_act, in this order (csrc enum Cfg)
+_CFG = ("dtype", "vec", "act", "split", "k", "slice", "smem", "grid_x", "grid_y",
+        "group_len", "spatial", "groups", "cpg")
+
+
+@functools.lru_cache(maxsize=256)
+def _launch(shape, dtype, device: int, num_groups: int, act: str, aligned: bool,
+            weight_shape, weight_device: int, bias_shape, bias_device: int):
+    """Validate a CUDA call by its key (``get_device()`` indices) and plan its
+    launch, once a key: (plan, the launch's integers). Raises what the kernel
+    refuses."""
+    if device < 0:
+        raise ValueError("groupnorm_act: x must be on a CUDA device")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"groupnorm_act: dtype {dtype} not supported")
+    if act not in _ACT_CODES:
+        raise NotImplementedError(f"groupnorm_act: activation {act!r}")
+    if len(shape) < 3:
+        raise ValueError(f"groupnorm_act: expected (N, C, *spatial), got {tuple(shape)}")
+    n, c = shape[0], shape[1]
+    if c % num_groups != 0:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    if weight_shape != (c,) or bias_shape != (c,):
+        raise ValueError("groupnorm_act: weight and bias must be (C,)")
+    if weight_device != device or bias_device != device:
+        raise ValueError("groupnorm_act: weight and bias must be on x's device")
+    spatial = math.prod(shape[2:])
+    p = plan(n, c, spatial, num_groups, 4 if dtype == torch.float32 else 2, aligned,
+             max_cluster(device))
+    vals = dict(dtype=_DTYPE_CODES[dtype], vec=int(p.aligned), act=_ACT_CODES[act],
+                split=int(p.path == "split"), k=p.k, slice=p.slice, smem=p.smem,
+                grid_x=p.grid[0], grid_y=p.grid[1], group_len=p.group_len, spatial=spatial,
+                groups=num_groups, cpg=c // num_groups)
+    return p, (ctypes.c_int * len(_CFG))(*(vals[f] for f in _CFG))
+
+
+def launch_plan(x: torch.Tensor, num_groups: int, act: str = "") -> GNPlan:
+    """The plan a call of :func:`groupnorm_act` on CUDA tensor ``x`` launches."""
+    c, dev = (x.shape[1],), x.get_device()
+    return _launch(x.shape, x.dtype, dev, num_groups, act, x.data_ptr() % 16 == 0,
+                   c, dev, c, dev)[0]
 
 
 def groupnorm_act_plain(x, weight, bias, num_groups: int, act: str = "", eps: float = 1e-5):
@@ -34,42 +197,25 @@ def groupnorm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return groupnorm_act_plain(x, weight, bias, num_groups, act, eps)
     global LAUNCHES
-    if x.device.type != "cuda":
-        raise ValueError(f"groupnorm_act: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
         raise RuntimeError("groupnorm_act has no backward; call it without grad")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"groupnorm_act: dtype {x.dtype} not supported")
-    if act not in _ACT_CODES:
-        raise NotImplementedError(f"groupnorm_act: activation {act!r}")
     if not x.is_contiguous():
         raise ValueError("groupnorm_act: x must be contiguous (channels-first)")
-    if x.ndim < 3:
-        raise ValueError(f"groupnorm_act: expected (N, C, *spatial), got {tuple(x.shape)}")
-    n, c = x.shape[0], x.shape[1]
-    if c % num_groups != 0:
-        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    if weight.shape != (c,) or bias.shape != (c,):
-        raise ValueError("groupnorm_act: weight and bias must be (C,)")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError("groupnorm_act: weight and bias must be on x's device")
-    spatial = math.prod(x.shape[2:])
-    cpg = c // num_groups
-    group_len = cpg * spatial
-    groups_total = n * num_groups
-    # counts are carried in float32 (exact below 2**24); grid.y is 16-bit
-    if group_len >= 2 ** 24 or groups_total > 65535:
-        raise ValueError(f"groupnorm_act: group of {group_len} elements x {groups_total} "
-                         "groups is outside the kernel's range")
-    gamma = weight.float().contiguous()
-    beta = bias.float().contiguous()
+    p, cfg = _launch(x.shape, x.dtype, x.get_device(), num_groups, act, x.data_ptr() % 16 == 0,
+                     weight.shape, weight.get_device(), bias.shape, bias.get_device())
+    gamma = weight if weight.dtype == torch.float32 and weight.is_contiguous() \
+        else weight.float().contiguous()
+    beta = bias if bias.dtype == torch.float32 and bias.is_contiguous() \
+        else bias.float().contiguous()
     y = torch.empty_like(x)
-    nchunks = -(-group_len // CHUNK)
-    partials = torch.empty(groups_total * nchunks * 3, dtype=torch.float32, device=x.device)
+    partials = None  # (count, mean, M2) of each chunk, on the split path only
+    if p.path == "split":
+        partials = torch.empty(p.grid[0] * p.grid[1] * 3, dtype=torch.float32,
+                               device=x.device)
     err = _lib.lib().dm_groupnorm_act(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        y.data_ptr(), partials.data_ptr(), groups_total, group_len, spatial,
-        num_groups, cpg, CHUNK, float(eps), _ACT_CODES[act], _lib.stream_ptr(x))
+        cfg, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        0 if partials is None else partials.data_ptr(), eps, _lib.stream_ptr(x))
     _lib.check(err, "groupnorm_act")
     LAUNCHES += 1
     return y

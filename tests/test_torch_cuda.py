@@ -52,6 +52,114 @@ def test_groupnorm_act_kernel(gen, dtype, tol, shape, groups, act):
     assert _rel_err(got, k1.groupnorm_act_plain(x.float(), w, b, groups, act)) <= tol
 
 
+def _k1_inputs(gen, shape, dtype=torch.bfloat16, mean=0.0):
+    x = (torch.randn(shape, generator=gen, device="cuda") + mean).to(dtype)
+    w = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+    b = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+    return x, w, b
+
+
+def _k1_check(x, w, b, groups, act="silu", tol=2.0 ** -7):
+    before = k1.LAUNCHES
+    got = k1.groupnorm_act(x, w, b, groups, act)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert _rel_err(got, k1.groupnorm_act_plain(x.float(), w, b, groups, act)) <= tol
+
+
+# each cluster size the planner takes at the published pairs (bf16; B=2, and
+# B=8 for k = 1); a card that schedules no cluster of 16 takes a smaller k
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,k", [
+    ((88, 2048, 2, 2), 1, 1),
+    ((22, 1024, 2, 2), 1, 2),
+    ((22, 64, 64, 64), 1, 4),
+    ((2, 256, 11, 64, 64), 32, 8),
+    ((2, 512, 11, 64, 64), 32, 16),
+    ((2, 256, 11, 128, 128), 32, 16),
+])
+def test_groupnorm_act_cluster_sizes(gen, shape, groups, k):
+    x, w, b = _k1_inputs(gen, shape)
+    p = k1.launch_plan(x, groups, "silu")
+    if k <= k1.max_cluster(x.device.index):
+        assert (p.path, p.k, p.kernels) == ("cluster", k, 1)
+    else:
+        assert p.k <= k1.max_cluster(x.device.index)
+    _k1_check(x, w, b, groups)
+
+
+@pytest.mark.cuda
+def test_groupnorm_act_published_split(gen):
+    # the VAE's 5.5 MB groups are past any cluster's capacity
+    x, w, b = _k1_inputs(gen, (2, 128, 11, 256, 256))
+    p = k1.launch_plan(x, 32, "silu")
+    assert (p.path, p.kernels) == ("split", 2)
+    _k1_check(x, w, b, 32)
+
+
+@pytest.mark.cuda
+def test_groupnorm_act_at_and_past_a_clusters_capacity(gen):
+    mc = k1.max_cluster(0)
+
+    def path(spatial):  # x (2, 8, spatial), G=1, bf16
+        return k1.plan(2, 8, spatial, 1, 2, True, mc).path
+
+    lo, hi = 1, k1.SMEM_LIMIT * mc  # cluster at lo, split at hi: the last spatial a cluster holds
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if path(mid) == "cluster" else (lo, mid)
+    for spatial, want in ((lo, "cluster"), (hi, "split")):
+        x, w, b = _k1_inputs(gen, (2, 8, spatial))
+        p = k1.launch_plan(x, 1)
+        assert p.path == want and (want == "split" or p.k == mc)
+        assert p.smem <= k1.SMEM_LIMIT
+        _k1_check(x, w, b, 1, "")
+
+
+@pytest.mark.cuda
+def test_groupnorm_act_misaligned_x_takes_the_scalar_variant(gen):
+    shape = (4, 64, 16, 16)
+    x, w, b = _k1_inputs(gen, shape)
+    x = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(shape).copy_(x)
+    assert not k1.launch_plan(x, 1).aligned
+    _k1_check(x, w, b, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((2, 128, 3, 40, 40), 32), ((22, 64, 64, 64), 1)])
+def test_groupnorm_act_float32_large_mean(gen, shape, groups):
+    # x = 50 + noise: the one-pass plain version loses digits in E[x^2] - mean^2,
+    # so the reference is float64
+    import torch.nn.functional as F
+
+    x, w, b = _k1_inputs(gen, shape, torch.float32, mean=50.0)
+    got = k1.groupnorm_act(x, w, b, groups, "silu")
+    ref = F.silu(F.group_norm(x.double(), groups, w.double(), b.double(), eps=1e-5))
+    assert ((got.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((22, 64, 64, 64), 1), ((2, 128, 11, 256, 256), 32)])
+def test_groupnorm_act_launches_the_plans_kernels(gen, shape, groups):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, b = _k1_inputs(gen, shape)
+    p = k1.launch_plan(x, groups, "silu")
+    k1.groupnorm_act(x, w, b, groups, "silu")  # built and planned before the trace
+    torch.cuda.synchronize()
+    before = k1.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the first kernel of a trace may be left out of it
+        torch.cuda.synchronize()
+        k1.groupnorm_act(x, w, b, groups, "silu")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert k1.LAUNCHES == before + 1
+    assert sum("gn_" in n for n in names) == p.kernels
+
+
 def _weight(w, layout):
     """A (K, N) weight from its (N, K) storage: the transposed view the module
     passes, or a row-major copy made before the call."""
