@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1, 2, 5, 3, 4, 6, 7 (the conv probe's device times are
-read before phase 3 profiles a UNet forward; see device_kernels); any
+Phases, in the order 1, 2, 5, 3, 4, 8, 9, 6, 7 (the conv probe's device times
+are read before phase 3 profiles a UNet forward; see device_kernels); any
 failure raises and the script exits non-zero without printing a result
 line:
   1. device: require CUDA; print the card's name and power limit;
@@ -35,8 +35,29 @@ line:
      default, K3's row) K3's TFLOP/s and share of the bound; the plain
      version's time (back-to-back kernel and library times are the probe's);
   6. card against CPU: the same port at published widths, 128^2 x 3, B=1,
-     DDIM-5, float32 (TF32 off), from the same weights and noise;
-  7. the kernel table as one JSON line, then the result line.
+     float32 (TF32 off), from the same weights and noise: DDIM-5, DDPM on a
+     T=20 predictor from one shared step-noise table, DPM-Solver++ with 5
+     steps;
+  7. the kernel table as one JSON line (phase 9's numbers under each
+     kernel's "cli"), then the result line;
+  8. entry point: a run dir in the reference layout (log.json naming a VAE
+     dir; best_model.pt of a seeded published-width predictor, float32;
+     vae.pt with dual_full keys and vae_log.json with norm_factors) and a
+     256^2 x 11 dataset whose test split holds one sample, written under
+     _build/; the port's CLI (inference.run) on it through its argv with
+     --sampler ddpm (T=1000), dpm --steps 10 and ddim --steps 50, each with
+     the launch counters set to 0: the loaded state dict's checksum equals
+     the written one, the output is finite, (1, 11, 3, 256, 256) and 0
+     where the mask is, K1 launched 38 x evaluations + 26 times, K2 6 x
+     evaluations, K3 never; the request time and volumes/s; then one more
+     DDIM-50 request of the CLI with a global forward hook recording the
+     shape and dtype of every GroupNorm and attention input (float32, B=1);
+     and the host share of a DDPM request of the CLI (1 - device time /
+     wall time) on a copy of the run dir with T=10: the CLI's own request
+     time, the device time from torch.profiler around its predictor's
+     predict() on the same inputs and generator;
+  9. cli kernels: phase 4 at the shapes and dtype phase 8 recorded, with the
+     float32 tolerances, calls counted a DDIM-50 request of the CLI.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -69,6 +90,11 @@ F32_FLOPS = 67e12
 K1_TOL = 2.0 ** -7
 K2_TOL = 1.3e-2
 K3_TOL = 2.0 ** -8
+# float32 inputs (the CLI's path): the kernels' sums run in another order
+# than the plain version's, nothing is rounded to bf16; the limits of
+# tests/test_torch_cuda.py's float32 cases
+K1_TOL_F32 = 1e-5
+K2_TOL_F32 = 1e-4
 CARD_VS_CPU_TOL = 1e-3  # float32, sums in another order on each side
 K3_WARM, K3_ITERS = 30, 10  # K3 / cuDNN device time: calls before the trace, calls traced
 
@@ -95,11 +121,14 @@ def sync_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel, launched first in every trace
+# sentinels a trace: torch.profiler has left out as many as the first two
+# kernels of a trace (the sentinel and the first gemm_bias_f32 of K2)
+SENTINELS = 4
 PROFILER = {"traces": 0, "first_left_out": 0}  # over the run, by device_kernels
 
 
 def _trace(fn, iters: int, counter) -> tuple:
-    """One torch.profiler trace: the sentinel kernel, then ``iters`` calls of
+    """One torch.profiler trace: the sentinel kernels, then ``iters`` calls of
     ``fn``. Returns the CUDA kernels as (name, ms) in launch order and the
     change of ``counter()`` (a wrapper's launch count; None without one)
     over the calls."""
@@ -107,7 +136,8 @@ def _trace(fn, iters: int, counter) -> tuple:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         before = counter() if counter else None
         for _ in range(iters):
@@ -137,18 +167,18 @@ def device_kernels(fn, iters: int = 10, keep=None, counter=None, per_launch: int
                    warmup: int = 1, tries: int = 5) -> list:
     """The CUDA kernels that ``iters`` calls of ``fn`` launch, in launch order,
     as (name, ms) from torch.profiler, after ``warmup`` calls. On an H100
-    torch.profiler may leave the first kernel of a trace out of it (most
+    torch.profiler may leave the first kernels of a trace out of it (most
     traces once a process has profiled a UNet forward, phase 3); each trace
-    therefore starts with a sentinel kernel of its own, which is not
-    returned. A trace that is not :func:`complete` is taken again, up to
-    ``tries`` traces, then raises."""
+    therefore starts with ``SENTINELS`` sentinel kernels of its own, which
+    are not returned. A trace that is not :func:`complete` is taken again,
+    up to ``tries`` traces, then raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         kernels, launched = _trace(fn, iters, counter)
         PROFILER["traces"] += 1
-        PROFILER["first_left_out"] += not kernels or SENTINEL not in kernels[0][0]
+        PROFILER["first_left_out"] += sum(SENTINEL in k[0] for k in kernels) < SENTINELS
         own = [k for k in kernels if SENTINEL not in k[0]]
         if complete(own, iters, keep, launched, per_launch):
             return own
@@ -179,9 +209,9 @@ def library_device_ms(fn, **kw):
 
 def tally(label: str, since: dict) -> dict:
     """The traces taken since ``since`` (a copy of PROFILER), and of how many
-    torch.profiler left the first kernel (the sentinel) out."""
+    torch.profiler left the first kernel (a sentinel) out."""
     d = {"label": label, **{k: PROFILER[k] - since[k] for k in PROFILER}}
-    log(f"[profile] {label}: torch.profiler left the first kernel (the sentinel) out of "
+    log(f"[profile] {label}: torch.profiler left the first kernel (a sentinel) out of "
         f"{d['first_left_out']} of {d['traces']} traces")
     return d
 
@@ -261,7 +291,7 @@ def phase_build() -> dict:
     return {"seconds": secs, "ptxas": usage}
 
 
-def published_predictor(device, dtype, seed=0):
+def published_predictor(device, dtype, seed=0, num_timesteps=1000):
     from diffusion_model_project_tpu_torch.diffusion.predictor import LatentDiffusionPredictor
     from diffusion_model_project_tpu_torch.models.layers import uniform_
     from diffusion_model_project_tpu_torch.models.unet import SelfAttention2D
@@ -270,7 +300,7 @@ def published_predictor(device, dtype, seed=0):
 
     pred = LatentDiffusionPredictor.create(
         dict(PUBLISHED_UNET_KWARGS), seed=seed, device="cpu", compute_dtype=dtype,
-        num_timesteps=1000, latent_channels=PUBLISHED_LATENT_CHANNELS)
+        num_timesteps=num_timesteps, latent_channels=PUBLISHED_LATENT_CHANNELS)
     # the JAX init zeroes final_conv and proj_out (output identically 0,
     # attention path dead); give them random weights so both are exercised
     gen = torch.Generator().manual_seed(seed + 1)
@@ -294,24 +324,28 @@ def make_inputs(b, s, hw, seed):
     return img, vel, noise
 
 
-def record_shapes(pred):
-    """Forward pre-hooks that count each (GroupNorm | attention) input shape."""
+def record_shapes(pred=None):
+    """Forward pre-hooks that count each (GroupNorm | attention) input shape
+    and dtype: on ``pred``'s modules, or on every module (one global hook)
+    without ``pred``."""
     from diffusion_model_project_tpu_torch.models.layers import GroupNorm, MultiheadSelfAttention
 
-    seen, handles = {}, []
+    seen = {}
 
     def hook(mod, args):
         x = args[0]
         if isinstance(mod, GroupNorm):
-            key = ("groupnorm_act", tuple(x.shape), mod.num_groups, mod.act)
+            key = ("groupnorm_act", tuple(x.shape), mod.num_groups, mod.act, str(x.dtype))
+        elif isinstance(mod, MultiheadSelfAttention):
+            key = ("fused_attention", tuple(x.shape), mod.num_heads, str(x.dtype))
         else:
-            key = ("fused_attention", tuple(x.shape), mod.num_heads)
+            return
         seen[key] = seen.get(key, 0) + 1
 
-    for m in pred.modules():
-        if isinstance(m, (GroupNorm, MultiheadSelfAttention)):
-            handles.append(m.register_forward_pre_hook(hook))
-    return seen, handles
+    if pred is None:
+        return seen, [torch.nn.modules.module.register_module_forward_pre_hook(hook)]
+    return seen, [m.register_forward_pre_hook(hook) for m in pred.modules()
+                  if isinstance(m, (GroupNorm, MultiheadSelfAttention))]
 
 
 def expected_calls(pred, steps):
@@ -456,11 +490,11 @@ def k1_library_call(x, w, b, groups: int, act: str):
     return lambda: post(F.group_norm(x, groups, wb, bb))
 
 
-def _k1_case(shape, groups, act, gen):
+def _k1_case(shape, groups, act, gen, dtype=torch.bfloat16):
     from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 
     c = shape[1]
-    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     w = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
     b = 0.1 * torch.randn(c, generator=gen, device="cuda")
     got = k1.groupnorm_act(x, w, b, groups, act).float()
@@ -480,12 +514,12 @@ def _k1_case(shape, groups, act, gen):
                  "slice_bytes": p.slice * x.element_size(), "aligned": p.aligned},
     }
     n = x.numel()
-    nbytes = 2 * n * 2 + 2 * c * 4          # bf16 x read + y written, f32 affine
+    nbytes = 2 * n * x.element_size() + 2 * c * 4   # x read + y written, f32 affine
     flops = 8 * n                            # stats + normalize + affine + act, a few per element
     return err, err / scale, nbytes, flops, times
 
 
-def _k2_case(shape, heads, gen):
+def _k2_case(shape, heads, gen, dtype=torch.bfloat16):
     import torch.nn.functional as F
 
     from diffusion_model_project_tpu_torch.ops.attention import multihead_attention
@@ -493,12 +527,12 @@ def _k2_case(shape, heads, gen):
 
     n, t, e = shape
     hd = e // heads
-    bf = torch.bfloat16
-    x = torch.randn(shape, generator=gen, device="cuda").to(bf)
-    w_qkv = (torch.randn((3 * e, e), generator=gen, device="cuda") / math.sqrt(e)).to(bf)
-    b_qkv = (0.02 * torch.randn(3 * e, generator=gen, device="cuda")).to(bf)
-    w_out = (torch.randn((e, e), generator=gen, device="cuda") / math.sqrt(e)).to(bf)
-    b_out = (0.02 * torch.randn(e, generator=gen, device="cuda")).to(bf)
+    dt = dtype
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    w_qkv = (torch.randn((3 * e, e), generator=gen, device="cuda") / math.sqrt(e)).to(dt)
+    b_qkv = (0.02 * torch.randn(3 * e, generator=gen, device="cuda")).to(dt)
+    w_out = (torch.randn((e, e), generator=gen, device="cuda") / math.sqrt(e)).to(dt)
+    b_out = (0.02 * torch.randn(e, generator=gen, device="cuda")).to(dt)
     args = (x, w_qkv.t(), b_qkv, w_out.t(), b_out)  # JAX layouts as views, as the module passes
     got = k2.fused_attention(*args, heads).float()
     ref = multihead_attention(*[a.float() for a in args], heads)
@@ -521,33 +555,46 @@ def _k2_case(shape, heads, gen):
                              counter=lambda: k2.LAUNCHES, per_launch=3)
     times["device_split_ms"] = {k: v / iters for k, v in k2_split(kernels).items()}
     times["device_ms"] = sum(times["device_split_ms"].values())
-    nbytes = 2 * (2 * n * t * e + 4 * e * e + 4 * e)
+    nbytes = x.element_size() * (2 * n * t * e + 4 * e * e + 4 * e)
     flops = 2 * n * t * e * 3 * e + 2 * 2 * n * t * t * e + 2 * n * t * e * e
     return err, err / scale, nbytes, flops, times
 
 
-def phase_kernels(shapes: dict, launches: dict) -> list:
+DTYPES = {str(d): d for d in (torch.bfloat16, torch.float32)}
+
+
+def phase_kernels(shapes: dict, launches: dict, tag: str = "kernels") -> list:
+    """Each kernel against its plain version at every (shape, dtype) of
+    ``shapes`` (from :func:`record_shapes`), calls counted a request."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
     for key, calls in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        dtype = DTYPES[key[-1]]
+        f32 = dtype == torch.float32
         if key[0] == "groupnorm_act":
-            _, shape, groups, act = key
-            err, rel, nbytes, flops, times = _k1_case(shape, groups, act, gen)
-            tol, label, peak = K1_TOL, f"G={groups} act={act or 'none'}", F32_FLOPS
+            _, shape, groups, act, _ = key
+            err, rel, nbytes, flops, times = _k1_case(shape, groups, act, gen, dtype)
+            tol, label, peak = (K1_TOL_F32 if f32 else K1_TOL,
+                                f"G={groups} act={act or 'none'}", F32_FLOPS)
         else:
-            _, shape, heads = key
-            err, rel, nbytes, flops, times = _k2_case(shape, heads, gen)
-            tol, label, peak = K2_TOL, f"heads={heads} hd={shape[2] // heads}", BF16_FLOPS
+            _, shape, heads, _ = key
+            err, rel, nbytes, flops, times = _k2_case(shape, heads, gen, dtype)
+            # float32 K2 runs SIMT products, bf16 K2 the tensor cores
+            tol, label, peak = (K2_TOL_F32 if f32 else K2_TOL,
+                                f"heads={heads} hd={shape[2] // heads}",
+                                F32_FLOPS if f32 else BF16_FLOPS)
+        label += f" {key[-1].replace('torch.', '')}"
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        row = dict(kernel=key[0], shape=list(shape), detail=label, calls_per_request=calls,
+        row = dict(kernel=key[0], shape=list(shape), dtype=key[-1], detail=label,
+                   calls_per_request=calls,
                    max_abs_err=err, rel_err=rel, tol=tol, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, flops=flops, bytes_ms=bytes_ms,
                    ops_ms=ops_ms, **times)
         rows.append(row)
         lib_dev = times["library_device_ms"]
-        log(f"[kernels] {key[0]:15s} {str(tuple(shape)):26s} {label:20s} x{calls:<5d} "
+        log(f"[{tag}] {key[0]:15s} {str(tuple(shape)):26s} {label:29s} x{calls:<5d} "
             f"err {err:.3e} (rel {rel:.2e}, tol {tol:.2e}) | ms {times['ms']:.4f} "
             f"device {times['device_ms']:.4f} plain {times['plain_ms']:.4f} "
             f"library {times['library_ms']:.4f} library device "
@@ -569,7 +616,7 @@ def phase_kernels(shapes: dict, launches: dict) -> list:
         k1_parts[part] = {k: sum(r[k] * r["calls_per_request"] for r in rs)
                           for k in ("device_ms", "bound_ms", "ms")}
         k1_parts[part]["calls"] = sum(r["calls_per_request"] for r in rs)
-    log("[kernels] K1 a request (ms): " + "; ".join(
+    log(f"[{tag}] K1 a request (ms): " + "; ".join(
         f"{part} ({v['calls']} calls) device {v['device_ms']:.3f}, bound {v['bound_ms']:.3f}, "
         f"back to back {v['ms']:.3f}" for part, v in k1_parts.items())
         + f"; total device {sum(v['device_ms'] for v in k1_parts.values()):.3f}")
@@ -664,27 +711,247 @@ def phase_conv_probe() -> tuple:
 def phase_card_vs_cpu() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    hw, s = 128, 3
+    hw, s, t_ddpm = 128, 3, 20
     cpu = published_predictor(torch.device("cpu"), torch.float32, seed=3)
     gpu = copy.deepcopy(cpu).to("cuda")
     img, vel, noise = make_inputs(1, s, hw, seed=4)
-    t0 = time.perf_counter()
-    ref = cpu.predict_ddim(img, vel, num_steps=5, noise=noise)
-    cpu_s = time.perf_counter() - t0
-    got = gpu.predict_ddim(img.cuda(), vel.cuda(), num_steps=5, noise=noise.cuda()).cpu()
-    rel = ((got - ref).abs().max() / ref.abs().max()).item()
-    log(f"[card-vs-cpu] published widths, {s}x{hw}^2, B=1, DDIM-5, float32: "
-        f"max|card-cpu|/max|cpu| = {rel:.3e} (tol {CARD_VS_CPU_TOL:.0e}); cpu {cpu_s:.1f} s")
-    if not (torch.isfinite(got).all() and rel <= CARD_VS_CPU_TOL):
-        raise RuntimeError(f"card and CPU disagree: {rel:.3e}")
-    return {"rel_err": rel, "tol": CARD_VS_CPU_TOL, "cpu_s": cpu_s}
+    gen = torch.Generator().manual_seed(5)
+    table = torch.randn((t_ddpm,) + tuple(noise.shape), generator=gen)
+    cpu20 = published_predictor(torch.device("cpu"), torch.float32, seed=3,
+                                num_timesteps=t_ddpm)
+    gpu20 = copy.deepcopy(cpu20).to("cuda")
+    cases = {
+        "DDIM-5": lambda p, d: p.predict_ddim(img.to(d), vel.to(d), num_steps=5,
+                                              noise=noise.to(d)),
+        f"DDPM T={t_ddpm}, shared step noise": lambda p, d: p.predict(
+            img.to(d), vel.to(d), noise=noise.to(d), step_noise=table.to(d)),
+        "DPM-Solver++ 5": lambda p, d: p.predict_dpm(img.to(d), vel.to(d), num_steps=5,
+                                                     noise=noise.to(d)),
+    }
+    out = {}
+    for name, run in cases.items():
+        on_cpu, on_gpu = (cpu20, gpu20) if name.startswith("DDPM") else (cpu, gpu)
+        t0 = time.perf_counter()
+        ref = run(on_cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        got = run(on_gpu, "cuda").cpu()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        log(f"[card-vs-cpu] published widths, {s}x{hw}^2, B=1, {name}, float32: "
+            f"max|card-cpu|/max|cpu| = {rel:.3e} (tol {CARD_VS_CPU_TOL:.0e}); cpu {cpu_s:.1f} s")
+        if not (torch.isfinite(got).all() and rel <= CARD_VS_CPU_TOL):
+            raise RuntimeError(f"card and CPU disagree in {name}: {rel:.3e}")
+        out[name] = {"rel_err": rel, "tol": CARD_VS_CPU_TOL, "cpu_s": cpu_s}
+    return out
 
 
-def summarize(rows: list, launches: dict) -> list:
-    """One entry per kernel; times are per request of its path (each shape's
-    time times its calls per request, summed): one predict_ddim for K1 and
-    K2, one call at each probe stage (the planner's tile) for K3. Errors are
-    the largest seen."""
+EP_SAMPLERS = (("ddpm", 1000), ("dpm", 10), ("ddim", 50))  # DDPM takes T steps
+
+
+def state_checksum(module) -> str:
+    """sha256 over a module's state dict: keys, shapes, dtypes and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(module.state_dict().items()):
+        v = v.detach().cpu().contiguous()
+        h.update(f"{k}:{tuple(v.shape)}:{v.dtype}".encode())
+        h.update(v.view(torch.uint8).numpy().tobytes() if v.numel() else b"")
+    return h.hexdigest()
+
+
+def write_entry_point_dirs(root: str) -> tuple:
+    """A run dir in the reference layout, its VAE dir and a dataset; returns
+    (run dir, checksum of the predictor written, the predictor)."""
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.utils.config import PUBLISHED_UNET_KWARGS
+
+    pred = published_predictor(torch.device("cpu"), torch.float32, seed=6)
+    run, vae, data = (os.path.join(root, d) for d in ("run", "vae", "data"))
+    for d in (run, vae, os.path.join(data, "x")):
+        os.makedirs(d)
+    sd = pred.state_dict()
+    torch.save({k: v for k, v in sd.items() if k.startswith(("model.", "normalizer."))},
+               os.path.join(run, "best_model.pt"))
+    torch.save(pred.vae.state_dict(), os.path.join(vae, "vae.pt"))
+    with open(os.path.join(vae, "vae_log.json"), "w") as f:
+        json.dump({"norm_factors": NORM_OUTPUT}, f)
+    predictor_kwargs = {"model_name": "UNet", "model_kwargs": dict(PUBLISHED_UNET_KWARGS),
+                        "distance_transform": True, "num_slices": S, "num_timesteps": 1000,
+                        "vae_path": vae}
+    with open(os.path.join(run, "log.json"), "w") as f:
+        json.dump({"params": {"dataset": {"root_dir": data}, "training": {
+            "predictor_type": "latent-diffusion", "predictor": predictor_kwargs}}}, f)
+    # 3 samples: the 70/15/15 split keeps 2 for training, 0 for validation
+    # and 1 for the test split the CLI reads
+    rng = np.random.default_rng(7)
+    n = 3
+    u2d = (rng.standard_normal((n, S, 3, HW, HW)) * 1e-2).astype(np.float32)
+    u2d[:, :, 2] = 0.0
+    fields = {"domain.pt": (rng.random((n, S, 1, HW, HW)) > 0.3).astype(np.float32),
+              "U_2d.pt": u2d,
+              "U.pt": (rng.standard_normal((n, S, 3, HW, HW)) * 1e-2).astype(np.float32),
+              "p.pt": rng.standard_normal((n, S, 1, HW, HW)).astype(np.float32),
+              "dxyz.pt": np.ones((n, 3), np.float32)}
+    for name, arr in fields.items():
+        torch.save(torch.from_numpy(arr), os.path.join(data, "x", name))
+    return run, state_checksum(pred), pred
+
+
+def ddpm_host_share(run_dir: str, t_short: int = 10) -> dict:
+    """The host's share of one DDPM request of the CLI: a copy of the run
+    dir whose log.json sets T = ``t_short`` (the same weights file, loaded
+    by the same loader), driven through the CLI once (its own request wall
+    time), then its predictor's predict() once more on the CLI's own inputs
+    and generator under torch.profiler (the device time: every CUDA kernel
+    and copy of the request)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_project_tpu_torch import inference
+
+    short = run_dir + f"_t{t_short}"
+    os.makedirs(short)
+    os.link(os.path.join(run_dir, "best_model.pt"), os.path.join(short, "best_model.pt"))
+    with open(os.path.join(run_dir, "log.json")) as f:
+        log_json = json.load(f)
+    log_json["params"]["training"]["predictor"]["num_timesteps"] = t_short
+    with open(os.path.join(short, "log.json"), "w") as f:
+        json.dump(log_json, f)
+
+    res = inference.run(["--model-dir", short, "--sampler", "ddpm"])
+    img, v2d, _ = inference.load_sample(res.args, log_json["params"])
+    pred = res.predictor
+    gen = torch.Generator(device="cuda").manual_seed(res.args.seed + res.args.index)
+    img_t, v2d_t = torch.from_numpy(img).cuda(), torch.from_numpy(v2d).cuda()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = pred.predict(img_t, v2d_t, generator=gen)
+        torch.cuda.synchronize()
+    # the same request: the same inputs and step noise (the sums' order may
+    # differ from run to run)
+    ref = torch.from_numpy(res.prediction)
+    if not (out.cpu() - ref).abs().max() <= CARD_VS_CPU_TOL * ref.abs().max():
+        raise RuntimeError("the profiled DDPM request differs from the CLI's")
+    device_ms = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    wall_ms = res.seconds * 1e3
+    return {"num_timesteps": t_short, "request_ms": wall_ms, "device_ms": device_ms,
+            "host_share": max(0.0, 1.0 - device_ms / wall_ms)}
+
+
+def phase_entry_point(smi: str) -> dict:
+    """The port's CLI on a run dir it wrote, once for each sampler."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch import inference
+    from diffusion_model_project_tpu_torch.diffusion.scheduler import (
+        ddim_timesteps, dpm_solver_coefficients)
+    from diffusion_model_project_tpu_torch.ops.cuda import _lib
+    from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
+    from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
+    from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
+
+    os.makedirs(_lib.BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="entry_point_", dir=_lib.BUILD_DIR)  # inside the checkout
+    try:
+        t0 = time.perf_counter()
+        run_dir, written, written_pred = write_entry_point_dirs(root)
+        log(f"[entry point] wrote the run dir, VAE dir and dataset in "
+            f"{time.perf_counter() - t0:.1f} s")
+        runs = {}
+        for sampler, steps in EP_SAMPLERS:
+            extra = [] if sampler == "ddpm" else ["--steps", str(steps)]
+            if sampler == "dpm":
+                ts = np.unique(ddim_timesteps(1000, steps))[::-1]
+                evals = len(dpm_solver_coefficients(written_pred.scheduler.alphas_cumprod, ts)["t"])
+            else:
+                evals = steps
+            k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = inference.run(["--model-dir", run_dir, "--sampler", sampler, *extra])
+            cli_s = time.perf_counter() - t0
+            launches = {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES,
+                        "conv3x3": k3.LAUNCHES}
+            expected = {"groupnorm_act": 38 * evals + 26, "fused_attention": 6 * evals,
+                        "conv3x3": 0}
+            # the same counts from the modules the path runs
+            if expected_calls(written_pred, evals) != (38 * evals + 26, 6 * evals):
+                raise RuntimeError(f"the published predictor's GroupNorm / attention counts "
+                                   f"are {expected_calls(written_pred, evals)}")
+            loaded = state_checksum(res.predictor)
+            pred_out = res.prediction
+            mask = np.broadcast_to(res.img == 0, pred_out.shape)
+            ok_out = (pred_out.shape == (1, S, 3, HW, HW) and bool(np.isfinite(pred_out).all())
+                      and not pred_out[mask].any())
+            r = {"evaluations": evals, "launches": launches, "expected": expected,
+                 "checksum_equal": loaded == written, "request_ms": res.seconds * 1e3,
+                 "volumes_per_s": 1.0 / res.seconds, "cli_s": cli_s,
+                 "max_abs_v": float(np.abs(pred_out).max()), "output_ok": ok_out}
+            runs[sampler] = r
+            log(f"[entry point] --sampler {' '.join([sampler] + extra)}: {evals} UNet "
+                f"evaluations; launches {launches} (expected {expected}); checksum "
+                f"{'equal' if r['checksum_equal'] else 'DIFFERENT'}; output "
+                f"{pred_out.shape} finite and masked: {ok_out}, max |v| {r['max_abs_v']:.4e}")
+            log(f"[entry point] --sampler {sampler}: request {r['request_ms']:.1f} ms, "
+                f"{r['volumes_per_s']:.4f} volumes/s (B=1, float32; the CLI call "
+                f"{cli_s:.1f} s with loading) | {smi}")
+            if launches != expected:
+                raise RuntimeError(f"--sampler {sampler} did not go through the kernels as "
+                                   f"expected: {launches} against {expected}")
+            if not r["checksum_equal"]:
+                raise RuntimeError(f"--sampler {sampler}: the loaded weights differ from the "
+                                   f"written ones")
+            if not ok_out:
+                raise RuntimeError(f"--sampler {sampler}: bad output")
+            del res
+        # the kernels at the shapes and dtype the CLI gives them: every
+        # GroupNorm and attention input of one DDIM-50 request, recorded by
+        # a global forward hook in a run of its own (a hook costs host time)
+        seen, handles = record_shapes()
+        try:
+            inference.run(["--model-dir", run_dir, "--sampler", "ddim", "--steps", "50"])
+        finally:
+            for h in handles:
+                h.remove()
+        recorded = {name: sum(v for k, v in seen.items() if k[0] == name)
+                    for name in ("groupnorm_act", "fused_attention")}
+        log(f"[entry point] the DDIM-50 request's kernel inputs: {len(seen)} (shape, dtype) "
+            f"pairs, dtypes {sorted({k[-1] for k in seen})}, calls {recorded}")
+        if recorded != {k: runs["ddim"]["expected"][k] for k in recorded}:
+            raise RuntimeError(f"the DDIM-50 request's hooks saw {recorded} calls")
+        share = ddpm_host_share(run_dir)
+        log(f"[entry point] DDPM request of the CLI at T={share['num_timesteps']} (the run dir's "
+            f"weights, log.json's T set to {share['num_timesteps']}): {share['request_ms']:.1f} "
+            f"ms wall, {share['device_ms']:.1f} ms on the device: host share "
+            f"{share['host_share']:.3f} | {smi}")
+        return {"runs": runs, "shapes": seen, "ddpm_request_host_share": share}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _totals(rs: list) -> dict:
+    """A kernel's numbers a request from its rows: each shape's time times
+    its calls a request, summed; the largest error."""
+    tot = lambda k: sum(r[k] * r["calls_per_request"] for r in rs)  # noqa: E731
+    lib_dev = [r.get("library_device_ms") for r in rs]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": tot("ms"), "device_ms": tot("device_ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"),
+            "bound_by": "bytes" if tot("bytes_ms") >= tot("ops_ms") else "operations",
+            "library_ms": tot("library_ms"),
+            "library_device_ms": None if None in lib_dev else tot("library_device_ms")}
+
+
+def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list) -> list:
+    """One entry per kernel; times are per request of its path: one
+    predict_ddim for K1 and K2, one call at each probe stage (the planner's
+    tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
+    for K3), ``launches_by_path`` every counted path's; ``cli`` holds K1 and
+    K2 at the CLI's own shapes and dtype, a DDIM-50 request of the CLI."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
                           "diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py:47"),
@@ -695,16 +962,17 @@ def summarize(rows: list, launches: dict) -> list:
     }
     out = []
     for name, (source, replaces) in meta.items():
-        rs = [r for r in rows if r["kernel"] == name]
-        tot = lambda k: sum(r[k] * r["calls_per_request"] for r in rs)
-        lib_dev = [r.get("library_device_ms") for r in rs]
-        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rs),
-                    "ms": tot("ms"), "device_ms": tot("device_ms"), "plain_ms": tot("plain_ms"),
-                    "bound_ms": tot("bound_ms"),
-                    "bound_by": "bytes" if tot("bytes_ms") >= tot("ops_ms") else "operations",
-                    "library_ms": tot("library_ms"),
-                    "library_device_ms": None if None in lib_dev else tot("library_device_ms")})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[name],
+                 "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+                 **_totals([r for r in rows if r["kernel"] == name])}
+        cli = [r for r in cli_rows if r["kernel"] == name]
+        if cli:
+            entry["cli"] = {"dtypes": sorted({r["dtype"] for r in cli}),
+                            "launches": by_path["cli_ddim"][name],
+                            "rel_err": max(r["rel_err"] for r in cli),
+                            "tol": max(r["tol"] for r in cli), **_totals(cli)}
+        out.append(entry)
     return out
 
 
@@ -727,14 +995,27 @@ def main() -> int:
     mark = dict(PROFILER)
     rows, k1_parts = phase_kernels(sl["shapes"], sl["launches"])
     tallies.append(tally("kernels", mark))
+    ep = phase_entry_point(device["nvidia_smi"])
+    mark = dict(PROFILER)
+    cli_rows, cli_k1_parts = phase_kernels(
+        ep["shapes"], {k: v for k, v in ep["runs"]["ddim"]["launches"].items() if v},
+        tag="cli kernels")
+    tallies.append(tally("cli kernels", mark))
     cvc = phase_card_vs_cpu()
-    kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches})
+    by_path = {"ddim_slice": {**sl["launches"], "conv3x3": 0},
+               "conv_probe": {"groupnorm_act": 0, "fused_attention": 0,
+                              "conv3x3": conv_launches},
+               **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}}
+    kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches}, by_path,
+                        cli_rows)
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
         {"key": list(map(str, k)), "calls": v} for k, v in sl["shapes"].items()]},
         "kernel_rows": rows + conv_rows, "k1_request_ms": k1_parts, "conv_probe": probed,
-        "card_vs_cpu": cvc,
+        "card_vs_cpu": cvc, "cli_kernel_rows": cli_rows, "cli_k1_request_ms": cli_k1_parts,
+        "entry_point": {**ep, "shapes": [{"key": list(map(str, k)), "calls": v}
+                                         for k, v in ep["shapes"].items()]},
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

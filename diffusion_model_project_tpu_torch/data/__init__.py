@@ -1,0 +1,4 @@
+"""Datasets and loaders (the port's own copies of the JAX package's ``data/``)."""
+from .dataset import BlindDataset, MicroFlowDataset, NumpyLoader, get_loader
+
+__all__ = ["BlindDataset", "MicroFlowDataset", "NumpyLoader", "get_loader"]

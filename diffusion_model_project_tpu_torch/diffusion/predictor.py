@@ -1,21 +1,25 @@
 """LatentDiffusionPredictor: frozen dual-branch VAE + UNet + scheduler.
 
-Counterpart of the JAX ``diffusion/predictor.py`` on the DDIM inference path:
+Counterpart of the JAX ``diffusion/predictor.py`` on its inference paths:
   img (B,S,1,H,W), velocity_2d (B,S,3,H,W)
     -> EDT + normalize the mask, bilinear to the latent grid
     -> E2D encode (deterministic mu) of the normalized 2D velocity
-    -> N DDIM steps of the UNet on B*S latent slices
-    -> D3D decode, denormalize, mask -> (B,S,3,H,W).
+    -> T-step DDPM (``predict``), N-step DDIM (``predict_ddim``) or N-step
+       DPM-Solver++ (``predict_dpm``) on the B*ld latent slices
+    -> D3D decode, denormalize, trilinear back to S slices where the VAE
+       compresses depth, mask -> (B,S,3,H,W).
 The public contract is channels-first, as in the JAX package; inside, the
-VAE sees (B, C, S, H, W) and the UNet (B*S, C, lh, lw). Module names follow
+VAE sees (B, C, S, H, W) and the UNet (B*ld, C, lh, lw). Module names follow
 the reference predictor state dict (``model.*``, ``vae.*``, ``scheduler.*``,
 ``normalizer.{input,output}.scale_factors``, ``distance_transform``).
-The DDPM, DPM-Solver and training entry points are not ported yet.
+Each sampler is a host loop of UNet calls (one dispatch a step). The
+training entry points (``forward``, ``encode_target``) are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,33 +27,43 @@ from ..models.unet import UNet
 from ..models.vae import REFERENCE_FEATURES, DualBranchVAE
 from ..ops.distance import distance_transform_edt
 from ..ops.normalizer import MaxNormalizer
-from ..ops.resize import interpolate_bilinear
+from ..ops.resize import interpolate_bilinear, interpolate_trilinear
 from ..utils.device import resolve_device
-from .scheduler import DiffusionScheduler, ddim_timesteps
+from .scheduler import DiffusionScheduler, ddim_timesteps, dpm_solver_coefficients
+
+CLIP = (-30.0, 30.0)  # the samplers' x0 clip (reference predictor.py:823-884)
 
 
 class LatentDiffusionPredictor(nn.Module):
     def __init__(self, model_kwargs: dict, *, num_timesteps: int = 1000,
                  distance_transform: bool = True, latent_channels: Optional[int] = None,
-                 vae_features: Optional[Sequence[int]] = None,
+                 vae_features: Optional[Sequence[int]] = None, vae_conditional: bool = False,
+                 vae_depth_factor: int = 1,
                  compute_dtype: torch.dtype = torch.float32, device="cuda"):
         """Modules with torch's default init on ``device`` (default 'cuda';
         raises without CUDA unless device='cpu'); ``create`` gives them the
-        JAX package's initializers, ``load_state_dict`` given weights."""
+        JAX package's initializers, ``load_state_dict`` given weights.
+        ``vae_conditional``: the FiLM-conditioned standard VAE (condition 0
+        on the 2D branch, 1 on the 3D branch). ``vae_depth_factor``: the
+        VAE's depth compression (latent depth = S // factor); the shipped
+        VAE preserves depth (1)."""
         super().__init__()
         device = resolve_device(device)
         model_kwargs = dict(model_kwargs)
         model_kwargs.setdefault("time_embedding_dim", 64)
-        self.model = UNet(**model_kwargs)
         latent_channels = latent_channels or model_kwargs.get("out_channels", 4)
-        self.vae = DualBranchVAE(latent_channels=latent_channels,
-                                 features=vae_features or REFERENCE_FEATURES)
+        with device:  # torch's default init runs where the weights will live
+            self.model = UNet(**model_kwargs)
+            self.vae = DualBranchVAE(latent_channels=latent_channels,
+                                     features=vae_features or REFERENCE_FEATURES,
+                                     conditional=vae_conditional)
         self.scheduler = DiffusionScheduler(num_timesteps)
         self.normalizer = nn.ModuleDict({"input": MaxNormalizer([1.0]),
                                          "output": MaxNormalizer([1.0] * 3)})
         self.register_buffer("distance_transform",
                              torch.tensor([1.0 if distance_transform else 0.0]))
         self.num_timesteps = num_timesteps
+        self.vae_depth_factor = vae_depth_factor
         # dtype of conv and matmul compute; scheduler math, normalization and
         # GroupNorm statistics stay float32
         self.compute_dtype = compute_dtype
@@ -66,6 +80,15 @@ class LatentDiffusionPredictor(nn.Module):
         pred.model.init_parameters_(gen)
         pred.vae.init_parameters_(gen)
         return pred.requires_grad_(False).eval()
+
+    @classmethod
+    def from_directory(cls, folder: str, **kwargs) -> "LatentDiffusionPredictor":
+        """A predictor from a run dir's ``log.json`` and weights
+        (``utils.checkpoint.predictor_from_directory``; default 'cuda')."""
+        from ..utils.checkpoint import predictor_from_directory
+
+        predictor, _ = predictor_from_directory(folder, **kwargs)
+        return predictor
 
     @property
     def device(self) -> torch.device:
@@ -93,19 +116,29 @@ class LatentDiffusionPredictor(nn.Module):
     def prepare_conditioning(self, img: torch.Tensor, velocity_2d: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """img (B,S,1,H,W), velocity_2d (B,S,3,H,W) ->
-        z_cond (B*S, latent, lh, lw), m_cond (B*S, 1, lh, lw), float32.
-        The VAE preserves depth, so the latent depth is S."""
+        z_cond (B*ld, latent, lh, lw), m_cond (B*ld, 1, lh, lw), float32,
+        with ld = S // vae_depth_factor."""
         b, s = img.shape[0], velocity_2d.shape[1]
         h, w = img.shape[-2], img.shape[-1]
-        lh, lw = h // 4, w // 4
+        lh, lw, ld = h // 4, w // 4, s // self.vae_depth_factor
 
         v2d = self.normalizer["output"].normalize(velocity_2d, channel_axis=2)
         z_cond, _ = self.vae.encode_2d_deterministic(
-            v2d.transpose(1, 2).to(self.compute_dtype))        # (B, C, S, lh, lw)
-        z_cond = z_cond.float().transpose(1, 2).reshape(b * s, self.latent_channels, lh, lw)
+            v2d.transpose(1, 2).to(self.compute_dtype))        # (B, C, ld, lh, lw)
+        if z_cond.shape[2] != ld:
+            raise ValueError(
+                f"vae_depth_factor={self.vae_depth_factor} implies latent depth {ld}, but "
+                f"encode_2d produced depth {z_cond.shape[2]}; the factor must match the "
+                f"VAE's depth compression (the shipped Encoder preserves depth -> 1)")
+        z_cond = z_cond.float().transpose(1, 2).reshape(b * ld, self.latent_channels, lh, lw)
 
         feats = self.pre_process(img.reshape(b * s, 1, h, w))
-        return z_cond, interpolate_bilinear(feats, lh, lw)     # (B*S, 1, lh, lw)
+        feats = interpolate_bilinear(feats, lh, lw)            # (B*S, 1, lh, lw)
+        if ld != s:
+            feats = interpolate_trilinear(feats.reshape(b, s, 1, lh, lw).transpose(1, 2),
+                                          ld, lh, lw)            # (B, 1, ld, lh, lw)
+            feats = feats.transpose(1, 2).reshape(b * ld, 1, lh, lw)
+        return z_cond, feats
 
     def _unet_eps(self, x, z_cond, m_cond, t):
         cd = self.compute_dtype
@@ -116,7 +149,7 @@ class LatentDiffusionPredictor(nn.Module):
 
     def _init_latent_noise(self, shape, noise: Optional[torch.Tensor],
                            generator: Optional[torch.Generator]) -> torch.Tensor:
-        """``noise`` (if given): (B*S, C, lh, lw) or (B, S, C, lh, lw)."""
+        """``noise`` (if given): (B*ld, C, lh, lw) or (B, ld, C, lh, lw)."""
         if noise is not None:
             return noise.reshape(shape).to(self.device, torch.float32)
         if generator is None:
@@ -127,34 +160,102 @@ class LatentDiffusionPredictor(nn.Module):
         """Shared sampler preamble: conditioning and initial latents."""
         img = img.to(self.device, torch.float32)
         velocity_2d = velocity_2d.to(self.device, torch.float32)
-        b, s = img.shape[0], velocity_2d.shape[1]
-        lh, lw = img.shape[-2] // 4, img.shape[-1] // 4
         z_cond, m_cond = self.prepare_conditioning(img, velocity_2d)
-        x = self._init_latent_noise((b * s, self.latent_channels, lh, lw), noise, generator)
+        x = self._init_latent_noise(z_cond.shape, noise, generator)
         return img, x, z_cond, m_cond
+
+    def _t(self, x: torch.Tensor, t: int) -> torch.Tensor:
+        return torch.full((x.shape[0],), int(t), dtype=torch.int64, device=x.device)
 
     def _ddim_loop(self, x, z_cond, m_cond, num_steps: int, eta: float = 0.0,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         ts = ddim_timesteps(self.num_timesteps, num_steps)
         ts_prev = list(ts[1:]) + [-1]
         for t, t_prev in zip(ts, ts_prev):
-            t_batch = torch.full((x.shape[0],), int(t), dtype=torch.int64, device=x.device)
+            t_batch = self._t(x, t)
             eps = self._unet_eps(x, z_cond, m_cond, t_batch)
             step_noise = None
             if eta > 0:
                 step_noise = torch.randn(x.shape, generator=generator,
                                          device=generator.device).to(x.device)
             x = self.scheduler.ddim_sample(eps, x, t_batch, int(t_prev), eta=eta,
-                                           noise=step_noise, clip_range=(-30.0, 30.0))
+                                           noise=step_noise, clip_range=CLIP)
+        return x
+
+    def _ddpm_loop(self, x, z_cond, m_cond, step_noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The T-step ancestral loop; step i (t = T-1-i) takes ``step_noise[i]``
+        or, without a table, the i-th draw from ``generator``."""
+        n_steps = self.num_timesteps
+        if step_noise is not None:
+            step_noise = step_noise.reshape((n_steps,) + tuple(x.shape)).to(x.device, torch.float32)
+        for i, t in enumerate(range(n_steps - 1, -1, -1)):
+            t_batch = self._t(x, t)
+            eps = self._unet_eps(x, z_cond, m_cond, t_batch)
+            if step_noise is not None:
+                z = step_noise[i]
+            else:
+                z = torch.randn(x.shape, generator=generator, device=generator.device).to(x.device)
+            x = self.scheduler.p_sample(eps, x, t_batch, z, clip_denoised=True, clip_range=CLIP)
+        return x
+
+    def _one_step(self, x, z_cond, m_cond) -> torch.Tensor:
+        """T = 1: x0 from the one UNet evaluation at t = 0 (reference
+        predictor.py:823-838)."""
+        eps = self._unet_eps(x, z_cond, m_cond, self._t(x, 0))
+        alpha_bar = self.scheduler.alphas_cumprod[0]
+        x = (x - torch.sqrt(1 - alpha_bar) * eps) / torch.sqrt(alpha_bar)
+        return torch.clamp(x, *CLIP)
+
+    def _dpm_loop(self, x, z_cond, m_cond, num_steps: int, order: int) -> torch.Tensor:
+        # a repeated node (num_steps > T) would be a zero-width step: dedupe,
+        # descending, which leaves the trajectory as it is
+        ts = np.unique(ddim_timesteps(self.num_timesteps, num_steps))[::-1]
+        c = dpm_solver_coefficients(self.scheduler.alphas_cumprod, ts, order=order)
+        prev_x0 = torch.zeros_like(x)
+        for i, t in enumerate(c["t"]):
+            eps = self._unet_eps(x, z_cond, m_cond, self._t(x, t))
+            x0 = (x - float(c["sigma_cur"][i]) * eps) / max(float(c["alpha_cur"][i]), 1e-8)
+            x0 = torch.clamp(x0, *CLIP)
+            d = x0 + float(c["c2"][i]) * (x0 - prev_x0)
+            x = float(c["sigma_ratio"][i]) * x + float(c["x0_coef"][i]) * d
+            prev_x0 = x0
         return x
 
     def _decode_and_finish(self, x, img):
-        """Latents (B*S, C, lh, lw) -> masked velocity (B, S, 3, H, W)."""
-        b, s = img.shape[0], img.shape[1]
-        z = x.reshape(b, s, self.latent_channels, x.shape[-2], x.shape[-1]).transpose(1, 2)
-        vel = self.vae.decode_3d(z.to(self.compute_dtype)).float()   # (B, 3, S, H, W)
+        """Latents (B*ld, C, lh, lw) -> masked velocity (B, S, 3, H, W)."""
+        b, s, h, w = img.shape[0], img.shape[1], img.shape[-2], img.shape[-1]
+        ld = x.shape[0] // b
+        z = x.reshape(b, ld, self.latent_channels, x.shape[-2], x.shape[-1]).transpose(1, 2)
+        vel = self.vae.decode_3d(z.to(self.compute_dtype)).float()   # (B, 3, ld, H, W)
         vel = self.normalizer["output"].inverse(vel, channel_axis=1)
+        if ld != s:
+            vel = interpolate_trilinear(vel, s, h, w)
         return vel.transpose(1, 2) * img                            # mask over C
+
+    @torch.inference_mode()
+    def predict(self, img: torch.Tensor, velocity_2d: torch.Tensor, *,
+                noise: Optional[torch.Tensor] = None,
+                step_noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The full T-step DDPM ancestral loop, x0 clipped to +/-30 (reference
+        predict(), predictor.py:754-896).
+
+        ``step_noise``: an optional channels-first table (T, B*ld, C, lh, lw)
+        of each step's noise, entry i for the i-th step taken (t = T-1-i).
+        Without it each step draws its noise from ``generator`` in step order,
+        the reference's ``torch.randn_like`` order (the JAX package folds its
+        key by t instead, so the bits differ by design; the table holds the
+        two to the same numbers)."""
+        if generator is None and step_noise is None and self.num_timesteps > 1:
+            raise ValueError("predict() needs a generator (or a step_noise table) for the "
+                             "per-step ancestral noise")
+        img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
+        if self.num_timesteps == 1:
+            x = self._one_step(x, z_cond, m_cond)
+        else:
+            x = self._ddpm_loop(x, z_cond, m_cond, step_noise, generator)
+        return self._decode_and_finish(x, img)
 
     @torch.inference_mode()
     def predict_ddim(self, img: torch.Tensor, velocity_2d: torch.Tensor,
@@ -167,4 +268,16 @@ class LatentDiffusionPredictor(nn.Module):
             raise ValueError("predict_ddim(eta>0) draws stochastic step noise; pass generator=")
         img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
         x = self._ddim_loop(x, z_cond, m_cond, num_steps, eta, generator)
+        return self._decode_and_finish(x, img)
+
+    @torch.inference_mode()
+    def predict_dpm(self, img: torch.Tensor, velocity_2d: torch.Tensor,
+                    num_steps: int = 10, *, order: int = 2,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Multistep DPM-Solver++ (deterministic; ``order`` 1 or 2) over the
+        DDIM timestep spacing, one UNet evaluation a distinct timestep.
+        ``order=1`` is DDIM(eta=0) while the x0 clip is inactive."""
+        img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
+        x = self._dpm_loop(x, z_cond, m_cond, num_steps, order)
         return self._decode_and_finish(x, img)

@@ -5,7 +5,8 @@ stored as float32 buffers (state-dict keys ``scheduler.<table>``); posterior
 variance clamped >= 1e-20; sqrt(alpha_bar) clamped >= 1e-8 in the x0
 prediction; ``p_sample`` clips x0 and adds no noise at t=0; ``ddim_sample``
 is the eta-parameterized DDIM step with alpha_bar_prev = 1 at t_prev < 0.
-All step functions take explicit noise.
+All step functions take explicit noise. ``dpm_solver_coefficients`` gives
+the per-step coefficients of DPM-Solver++ on the host.
 """
 from __future__ import annotations
 
@@ -58,6 +59,47 @@ def ddim_timesteps(num_timesteps: int, num_steps: int) -> np.ndarray:
     i = np.arange(n)
     vals = np.where(i < n // 2, start + i * step, end - (n - 1 - i) * step)
     return vals.astype(np.int64)
+
+
+def dpm_solver_coefficients(alphas_cumprod, ts, order: int = 2) -> dict:
+    """Per-step coefficients of multistep DPM-Solver++ (Lu et al. 2022,
+    arXiv:2211.01095, data prediction), computed on the host in float64 from
+    the float32 ``alphas_cumprod`` table and returned as float32 numpy arrays
+    (the JAX package computes the same formulas in float32).
+
+    The solver moves along the strictly decreasing nodes ``ts`` plus a final
+    node at alpha_bar = 1. In log-SNR lambda = log(alpha/sigma), the step
+    from node i to i+1 is
+        x_{i+1} = (sigma_{i+1}/sigma_i) x_i - alpha_{i+1} expm1(-h_i) D_i,
+    h_i = lambda_{i+1} - lambda_i, D_i the x0 prediction, extrapolated by
+    c2 = h_i / (2 h_{i-1}) at order 2 except on the first and last steps.
+    Returns t, alpha_cur, sigma_cur, sigma_ratio, x0_coef and c2, each of
+    length len(ts)."""
+    if order not in (1, 2):
+        raise ValueError(f"DPM-Solver++ order must be 1 or 2, got {order}")
+    ts = np.asarray(ts, np.int64)
+    if len(ts) > 1 and not np.all(np.diff(ts) < 0):
+        raise ValueError(f"DPM timesteps must be strictly decreasing, got {ts}")
+    if isinstance(alphas_cumprod, torch.Tensor):
+        alphas_cumprod = alphas_cumprod.detach().cpu().numpy()
+    abar = np.asarray(alphas_cumprod, np.float32)[ts].astype(np.float64)
+    alpha = np.concatenate([np.sqrt(abar), [1.0]])
+    sigma = np.concatenate([np.sqrt(1.0 - abar), [0.0]])
+    with np.errstate(divide="ignore"):
+        lam = np.log(alpha) - np.log(sigma)          # +inf at the final node
+    h = np.diff(lam)
+    x0_coef = -alpha[1:] * np.expm1(-h)               # 1 at the final node
+    sigma_ratio = sigma[1:] / np.maximum(sigma[:-1], 1e-20)
+    n = len(ts)
+    c2 = np.zeros(n)
+    if order == 2 and n > 2:
+        h_prev = np.roll(h, 1)
+        mid = slice(1, n - 1)
+        c2[mid] = np.where(np.isfinite(h[mid]) & (h_prev[mid] > 0),
+                           h[mid] / (2.0 * h_prev[mid]), 0.0)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(t=ts, alpha_cur=f32(alpha[:-1]), sigma_cur=f32(sigma[:-1]),
+                sigma_ratio=f32(sigma_ratio), x0_coef=f32(x0_coef), c2=f32(c2))
 
 
 def _bcast(table_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -3,14 +3,15 @@
 The port's own copy of the layout transforms in the JAX package's
 ``utils/torch_export.py`` (``export_unet``, ``export_dual_vae``,
 ``export_predictor_parts``). Input: nested dicts of numpy arrays (flax
-params, channels-last). Output: state dicts whose keys are the reference
+params, channels-last; a bfloat16 leaf read from a msgpack file is a torch
+tensor). Output: state dicts whose keys are the reference
 torch predictor's, which the port's modules use, so
 ``load_state_dict(..., strict=True)`` accepts them.
 
   Conv3d  (kD, kH, kW, I, O) -> (O, I, kD, kH, kW)
   Conv2d  (kH, kW, I, O)     -> (O, I, kH, kW)
   ConvT2d                     unchanged (already torch (I, O, kH, kW))
-  Linear  (I, O)             -> (O, I)
+  Linear  (I, O)             -> (O, I)   (also FiLM's mlp_0/2/4 -> mlp.0/2/4)
   MHA in_proj_weight (E, 3E) -> (3E, E); proj_out (C, C) -> Conv1d (C, C, 1)
 """
 from __future__ import annotations
@@ -26,6 +27,8 @@ StateDict = Dict[str, np.ndarray]
 
 
 def _a(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):  # e.g. a bfloat16 leaf of a flax msgpack file
+        return x.detach().to(torch.float32).cpu().numpy()
     return np.asarray(x, dtype=np.float32)
 
 
@@ -58,15 +61,21 @@ def _linear(params: dict, key: str, sd: StateDict) -> None:
         sd[f"{key}.bias"] = _a(params["bias"])
 
 
+def _film(params: dict, key: str, sd: StateDict) -> None:
+    for i in (0, 2, 4):
+        _linear(params[f"mlp_{i}"], f"{key}.mlp.{i}", sd)
+
+
 def _res_block(params: dict, key: str, sd: StateDict) -> None:
-    if "film1" in params or "film2" in params:
-        raise NotImplementedError("conditional (FiLM) VAE weights are not ported yet")
     _norm(params["norm1"], f"{key}.norm1", sd)
     _conv(params["conv1"], f"{key}.conv1", sd)
     _norm(params["norm2"], f"{key}.norm2", sd)
     _conv(params["conv2"], f"{key}.conv2", sd)
     if "residual_layer" in params:
         _conv(params["residual_layer"], f"{key}.residual_layer", sd)
+    for film in ("film1", "film2"):
+        if film in params:
+            _film(params[film], f"{key}.{film}", sd)
 
 
 def _vae_half(params: dict, up: bool) -> StateDict:
@@ -82,7 +91,16 @@ def _vae_half(params: dict, up: bool) -> StateDict:
             _conv(params[entry], entry, sd)
     _norm(params["norm_out"], "norm_out", sd)
     _conv(params["conv_out"], "conv_out", sd)
+    for film in (("film_in", "film_pre_out") if up else ("film_in", "film_out")):
+        if film in params:
+            _film(params[film], film, sd)
     return sd
+
+
+def export_vae_branch(name: str, params: dict) -> StateDict:
+    """One VAE branch's flax params -> its state dict (keys relative to the
+    branch); ``name`` starting with 'decoder' selects the decoder layout."""
+    return _vae_half(params, up=name.startswith("decoder"))
 
 
 def export_dual_vae(branches: dict) -> StateDict:
@@ -91,7 +109,7 @@ def export_dual_vae(branches: dict) -> StateDict:
     for name, params in branches.items():
         if params is None:
             continue
-        for k, v in _vae_half(params, up=name.startswith("decoder")).items():
+        for k, v in export_vae_branch(name, params).items():
             sd[f"{name}.{k}"] = v
     return sd
 
@@ -159,8 +177,13 @@ def export_predictor_parts(*, unet_params: dict, vae_params: dict, scheduler,
     return sd
 
 
+def to_tensor(x) -> torch.Tensor:
+    """A float32 CPU tensor holding its own copy of ``x``."""
+    return torch.from_numpy(np.array(_a(x), dtype=np.float32))
+
+
 def to_tensors(sd: StateDict) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return {k: to_tensor(v) for k, v in sd.items()}
 
 
 def load_flax_params(predictor, unet_params: dict, vae_params: dict) -> None:

@@ -299,3 +299,88 @@ def test_kernels_refuse_grad_and_bad_input(gen):
         k3.conv3x3(xc.transpose(1, 2), wc)
     with pytest.raises(ValueError, match="expected x"):
         k3.conv3x3(xc, wc.permute(3, 2, 0, 1))
+
+
+# --------------------------------------------------- the inference entry point
+
+
+@pytest.fixture
+def no_tf32(gen):
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield gen
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def _tiny_predictor(**kwargs):
+    from diffusion_model_project_tpu_torch.diffusion.predictor import LatentDiffusionPredictor
+
+    # attention at the 64- and 256-wide levels: head dims 32 and 128, which K2 takes
+    unet = dict(in_channels=9, out_channels=4, features=(16, 64, 256), kernel_size=3,
+                padding_mode="zeros", activation="silu", final_activation=None,
+                attention="2..2", dropout=0.0, time_embedding_dim=64)
+    pred = LatentDiffusionPredictor.create(unet, seed=3, device="cpu", latent_channels=4,
+                                           vae_features=(32, 32, 32), **kwargs)
+    torch.nn.init.normal_(pred.model.final_conv.weight, std=0.05, generator=torch.Generator()
+                          .manual_seed(4))
+    return pred.set_normalizer({"input": [1.0], "output": [2.1e-2, 1.6e-2, 7.9e-3]})
+
+
+def _tiny_inputs(s=3, hw=32, steps=10):
+    g = torch.Generator().manual_seed(5)
+    img = (torch.rand((1, s, 1, hw, hw), generator=g) > 0.3).float()
+    vel = torch.randn((1, s, 3, hw, hw), generator=g) * 1e-2
+    noise = torch.randn((s, 4, hw // 4, hw // 4), generator=g)
+    table = torch.randn((steps,) + tuple(noise.shape), generator=g)
+    return img, vel, noise, table
+
+
+@pytest.mark.cuda
+def test_conditional_vae_on_the_card(no_tf32):
+    # FiLM hands K1 float32 features whatever the compute dtype
+    from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
+
+    cpu = DualBranchVAE(latent_channels=4, features=(32, 32, 32), conditional=True)
+    cpu.init_parameters_(torch.Generator().manual_seed(1))
+    card = DualBranchVAE(latent_channels=4, features=(32, 32, 32), conditional=True).cuda()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(2)
+    v, z = torch.randn((2, 3, 3, 32, 32), generator=g), torch.randn((2, 4, 3, 8, 8), generator=g)
+    with torch.inference_mode():
+        before = k1.LAUNCHES
+        mu = card.encode_2d_deterministic(v.cuda())[0]
+        out = card.decode_3d(z.cuda())
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES == before + 26
+        assert _rel_err(mu.cpu(), cpu.encode_2d_deterministic(v)[0]) <= 1e-4
+        assert _rel_err(out.cpu(), cpu.decode_3d(z)) <= 1e-4
+        out16 = card.decode_3d(z.cuda().bfloat16())
+        assert torch.isfinite(out16).all() and _rel_err(out16.float().cpu(), cpu.decode_3d(z)) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["ddpm", "dpm"])
+def test_samplers_on_the_card_match_the_cpu(no_tf32, sampler):
+    import copy
+
+    cpu = _tiny_predictor(num_timesteps=10)
+    card = copy.deepcopy(cpu).to("cuda")
+    img, vel, noise, table = _tiny_inputs()
+
+    def run(p, d):
+        if sampler == "ddpm":
+            return p.predict(img.to(d), vel.to(d), noise=noise.to(d), step_noise=table.to(d))
+        return p.predict_dpm(img.to(d), vel.to(d), num_steps=5, noise=noise.to(d))
+
+    assert _rel_err(run(card, "cuda").cpu(), run(cpu, "cpu")) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ddpm_draws_from_a_card_generator(gen):
+    card = _tiny_predictor(num_timesteps=10).to("cuda")
+    img, vel, _, _ = _tiny_inputs()
+    runs = [card.predict(img.cuda(), vel.cuda(),
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+            for seed in (7, 7, 8)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+    assert torch.isfinite(runs[0]).all()

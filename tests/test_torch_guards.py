@@ -1,5 +1,5 @@
 """Guards that keep the PyTorch port separate from the JAX package and keep
-its kernels from falling back: no import of ``jax`` or of
+its kernels from falling back: no import of ``jax``, ``flax``, ``msgpack`` or
 ``diffusion_model_project_tpu`` anywhere in the port or in ``chip_smoke.py``,
 no CPU default for the entry points, and kernel modules that import without
 ``nvcc`` or CUDA."""
@@ -14,7 +14,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "diffusion_model_project_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "diffusion_model_project_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "diffusion_model_project_tpu"}
 
 
 def _port_sources():
@@ -35,6 +35,9 @@ def _imported_top_levels(path: pathlib.Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = _port_sources() + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"inference.py", "data/dataset.py", "utils/checkpoint.py", "utils/flax_msgpack.py",
+            "utils/torch_import.py"} <= names
     offenders = {str(f.relative_to(REPO)): sorted(set(_imported_top_levels(f)) & FORBIDDEN)
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}
@@ -86,8 +89,12 @@ def test_import_chain_leaves_jax_unloaded():
             "import diffusion_model_project_tpu_torch.ops.cuda.groupnorm_act\n"
             "import diffusion_model_project_tpu_torch.ops.cuda.conv3x3\n"
             "import diffusion_model_project_tpu_torch.scripts.perf_probe_conv\n"
+            "import diffusion_model_project_tpu_torch.inference\n"
+            "import diffusion_model_project_tpu_torch.data\n"
+            "import diffusion_model_project_tpu_torch.utils.checkpoint\n"
+            "import diffusion_model_project_tpu_torch.utils.flax_msgpack\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'diffusion_model_project_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'msgpack', 'diffusion_model_project_tpu'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PATH="/usr/bin:/bin")  # no nvcc needed to import
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -105,3 +112,30 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it():
         LatentDiffusionPredictor.create(dict(PUBLISHED_UNET_KWARGS))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LatentDiffusionPredictor(dict(PUBLISHED_UNET_KWARGS))
+
+
+def test_run_dir_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    import json
+
+    from diffusion_model_project_tpu_torch import inference
+    from diffusion_model_project_tpu_torch.utils.checkpoint import (
+        build_predictor, predictor_from_directory)
+    from diffusion_model_project_tpu_torch.utils.config import PUBLISHED_UNET_KWARGS
+
+    predictor = {"model_name": "UNet", "model_kwargs": dict(PUBLISHED_UNET_KWARGS)}
+    (tmp_path / "log.json").write_text(json.dumps({"params": {"training": {
+        "predictor_type": "latent-diffusion", "predictor": predictor}}}))
+    np_file = tmp_path / "sample.npz"
+    import numpy as np
+
+    np.savez(np_file, microstructure=np.ones((2, 1, 8, 8), np.float32),
+             velocity_input=np.zeros((2, 3, 8, 8), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_predictor(predictor)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predictor_from_directory(str(tmp_path))
+    assert inference.parse_args(["--model-dir", str(tmp_path)]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.run(["--model-dir", str(tmp_path), "--input-file", str(np_file)])

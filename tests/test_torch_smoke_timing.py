@@ -1,8 +1,8 @@
 """``chip_smoke.py``'s device time per call, on the CPU with stand-in traces.
 
 On an H100, once a process has profiled a UNet forward, torch.profiler
-leaves the first kernel of each later trace out of it. The script starts
-every trace with a sentinel kernel of its own, takes only traces that hold
+leaves the first kernels of each later trace out of it. The script starts
+every trace with sentinel kernels of its own, takes only traces that hold
 every kernel of the calls (:func:`complete`), and divides their sum by the
 number of calls: no launch is ever filled in.
 """
@@ -53,7 +53,7 @@ def test_complete_counts_only_the_wrappers_kernels_against_its_launches(smoke):
 @pytest.mark.parametrize("sentinel_kept", [True, False])
 def test_device_ms_drops_the_sentinel_and_retakes_an_incomplete_trace(
         smoke, monkeypatch, no_card, sentinel_kept):
-    head = [(SPIN, 0.002)] if sentinel_kept else []
+    head = [(SPIN, 0.002)] * smoke.SENTINELS if sentinel_kept else []
     traces = iter([
         (head + [("conv", 1.0)] * 4, 5),   # a launch left out: taken again
         (head + [("conv", 1.1)] * 5, 5),
