@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1, 2, 5, 3, 4, 8, 9, 6, 7 (the conv probe's device times
-are read before phase 3 profiles a UNet forward; see device_kernels); any
-failure raises and the script exits non-zero without printing a result
-line:
+Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 11, 6, 7 (the conv probe's
+device times are read before phase 3 profiles a UNet forward; see
+device_kernels); any failure raises and the script exits non-zero without
+printing a result line:
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the hand-written kernels (csrc/*.cu, one nvcc per source)
      into libkernels.so;
@@ -37,14 +37,17 @@ line:
   6. card against CPU: the same port at published widths, 128^2 x 3, B=1,
      float32 (TF32 off), from the same weights and noise: DDIM-5, DDPM on a
      T=20 predictor from one shared step-noise table, DPM-Solver++ with 5
-     steps;
+     steps; forward's eps_pred and the eval step's loss from the same noise
+     and t; the sanity (E3D, D3D) and cross (E2D, D3D) reconstructions;
   7. the kernel table as one JSON line (phase 9's numbers under each
-     kernel's "cli"), then the result line;
+     kernel's "cli", phase 11's under its "evaluation"), then the result
+     line;
   8. entry point: a run dir in the reference layout (log.json naming a VAE
-     dir; best_model.pt of a seeded published-width predictor, float32;
-     vae.pt with dual_full keys and vae_log.json with norm_factors) and a
-     256^2 x 11 dataset whose test split holds one sample, written under
-     _build/; the port's CLI (inference.run) on it through its argv with
+     dir, the dataset, evaluate's batch 2 and cost; best_model.pt of a
+     seeded published-width predictor, float32; vae.pt with dual_full keys
+     and vae_log.json with norm_factors) and a 256^2 x 11 dataset of 12
+     samples whose test split holds 3, written under _build/ (phases
+     8-10); the port's CLI (inference.run) on it through its argv with
      --sampler ddpm (T=1000), dpm --steps 10 and ddim --steps 50, each with
      the launch counters set to 0: the loaded state dict's checksum equals
      the written one, the output is finite, (1, 11, 3, 256, 256) and 0
@@ -57,7 +60,19 @@ line:
      time, the device time from torch.profiler around its predictor's
      predict() on the same inputs and generator;
   9. cli kernels: phase 4 at the shapes and dtype phase 8 recorded, with the
-     float32 tolerances, calls counted a DDIM-50 request of the CLI.
+     float32 tolerances, calls counted a DDIM-50 request of the CLI;
+ 10. evaluation: on phase 8's dirs, float32, each with the launch counters
+     set to 0 and held to the counts derived from the modules (K3 never):
+     evaluate at B=2 (finite loss, test_result.txt, seconds a batch);
+     eval_testset_end2end over the test split with DDIM-50 at batch 1 and
+     2 (per-sample nMAE equal within 1e-3), DPM-10, --sanity-mode and
+     --cross-mode (the report, seconds a sample, steady state);
+     inference_vae.run in modes 2d, 3d and cross (finite masked MAE);
+     then each path once more under a global forward hook recording the
+     GroupNorm and attention inputs;
+ 11. eval kernels: phase 4 at the (shape, dtype) pairs of phase 10 that no
+     earlier phase held, float32 tolerances, calls counted over phase 10's
+     hooked runs.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -67,8 +82,10 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -121,9 +138,10 @@ def sync_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel, launched first in every trace
-# sentinels a trace: torch.profiler has left out as many as the first two
-# kernels of a trace (the sentinel and the first gemm_bias_f32 of K2)
-SENTINELS = 4
+# sentinels a trace: torch.profiler has left out as many as the first six
+# kernels of a trace (4 sentinels and the first gemm_bias_f32 and
+# attention_core_f32 of K2, late in a run with hundreds of traces)
+SENTINELS = 16
 PROFILER = {"traces": 0, "first_left_out": 0}  # over the run, by device_kernels
 
 
@@ -185,8 +203,9 @@ def device_kernels(fn, iters: int = 10, keep=None, counter=None, per_launch: int
         counts = {}
         for name, _ in own:
             counts[name[:48]] = counts.get(name[:48], 0) + 1
-        log(f"[profile] a trace of {iters} calls ({launched} launches counted) held {counts}; "
-            f"again")
+        kept = len(kernels) - len(own)
+        log(f"[profile] a trace of {iters} calls ({launched} launches counted) held {counts} "
+            f"after {kept} of its {SENTINELS} sentinels; again")
     raise RuntimeError(f"torch.profiler recorded {len(own)} CUDA kernels in {iters} calls")
 
 
@@ -538,6 +557,12 @@ def _k2_case(shape, heads, gen, dtype=torch.bfloat16):
     ref = multihead_attention(*[a.float() for a in args], heads)
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
+    # both against the plain version in float64: tells a kernel that sums as
+    # the plain version does from one that returns the plain version's output
+    ref64 = multihead_attention(*[a.double() for a in args], heads)
+    vs_f64 = {"kernel": (got.double() - ref64).abs().max().item(),
+              "plain": (ref.double() - ref64).abs().max().item()}
+    del ref64
 
     def library():
         qkv = F.linear(x, w_qkv, b_qkv).view(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
@@ -555,6 +580,7 @@ def _k2_case(shape, heads, gen, dtype=torch.bfloat16):
                              counter=lambda: k2.LAUNCHES, per_launch=3)
     times["device_split_ms"] = {k: v / iters for k, v in k2_split(kernels).items()}
     times["device_ms"] = sum(times["device_split_ms"].values())
+    times["max_abs_err_vs_f64"] = vs_f64
     nbytes = x.element_size() * (2 * n * t * e + 4 * e * e + 4 * e)
     flops = 2 * n * t * e * 3 * e + 2 * 2 * n * t * t * e + 2 * n * t * e * e
     return err, err / scale, nbytes, flops, times
@@ -602,6 +628,8 @@ def phase_kernels(shapes: dict, launches: dict, tag: str = "kernels") -> list:
             f"({bound_by})"
             + ("".join(f" | {k} {v:.4f}" for k, v in times["device_split_ms"].items())
                if "device_split_ms" in times else "")
+            + ("".join(f" | {k} vs float64 {v:.3e}" for k, v in times["max_abs_err_vs_f64"].items())
+               if "max_abs_err_vs_f64" in times else "")
             + (f" | {times['plan']['path']} k={times['plan']['k']}, {times['plan']['kernels']} "
                f"kernel(s), {times['plan']['blocks']} blocks of {times['plan']['slice_bytes']} "
                "bytes" if "plan" in times else ""))
@@ -709,6 +737,9 @@ def phase_conv_probe() -> tuple:
 
 
 def phase_card_vs_cpu() -> dict:
+    from diffusion_model_project_tpu_torch.scripts.eval_testset_end2end import vae_reconstruct
+    from diffusion_model_project_tpu_torch.training.steps import make_diffusion_eval_step
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     hw, s, t_ddpm = 128, 3, 20
@@ -720,6 +751,16 @@ def phase_card_vs_cpu() -> dict:
     cpu20 = published_predictor(torch.device("cpu"), torch.float32, seed=3,
                                 num_timesteps=t_ddpm)
     gpu20 = copy.deepcopy(cpu20).to("cuda")
+    # the noise-prediction step from one target, noise and t (t drawn in [0, T))
+    v3d = torch.randn((1, s, 3, hw, hw), generator=gen) * 1e-2
+    t = torch.randint(0, 1000, (s,), generator=gen)
+    eval_step = make_diffusion_eval_step(cost_name=EVAL_COST)
+
+    @torch.no_grad()
+    def forward(p, d):
+        return p.forward(img.to(d), vel.to(d), p.encode_target(v3d.to(d)), noise=noise.to(d),
+                         t=t.to(d))[0]
+
     cases = {
         "DDIM-5": lambda p, d: p.predict_ddim(img.to(d), vel.to(d), num_steps=5,
                                               noise=noise.to(d)),
@@ -727,6 +768,14 @@ def phase_card_vs_cpu() -> dict:
             img.to(d), vel.to(d), noise=noise.to(d), step_noise=table.to(d)),
         "DPM-Solver++ 5": lambda p, d: p.predict_dpm(img.to(d), vel.to(d), num_steps=5,
                                                      noise=noise.to(d)),
+        "forward eps_pred (shared noise, t)": forward,
+        # the generator on the CPU on both sides: the same noise and t
+        f"eval step loss ({EVAL_COST})": lambda p, d: eval_step(
+            p, {"img": img, "U_2d": vel, "U": v3d}, torch.Generator().manual_seed(8))["val_loss"],
+        "sanity reconstruction (E3D, D3D)": lambda p, d: vae_reconstruct(
+            p, img.to(d), v3d.to(d), from_2d=False),
+        "cross reconstruction (E2D, D3D)": lambda p, d: vae_reconstruct(
+            p, img.to(d), vel.to(d), from_2d=True),
     }
     out = {}
     for name, run in cases.items():
@@ -736,8 +785,10 @@ def phase_card_vs_cpu() -> dict:
         cpu_s = time.perf_counter() - t0
         got = run(on_gpu, "cuda").cpu()
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        values = f" (card {got.item()!r}, cpu {ref.item()!r})" if ref.ndim == 0 else ""
         log(f"[card-vs-cpu] published widths, {s}x{hw}^2, B=1, {name}, float32: "
-            f"max|card-cpu|/max|cpu| = {rel:.3e} (tol {CARD_VS_CPU_TOL:.0e}); cpu {cpu_s:.1f} s")
+            f"max|card-cpu|/max|cpu| = {rel:.3e}{values} (tol {CARD_VS_CPU_TOL:.0e}); "
+            f"cpu {cpu_s:.1f} s")
         if not (torch.isfinite(got).all() and rel <= CARD_VS_CPU_TOL):
             raise RuntimeError(f"card and CPU disagree in {name}: {rel:.3e}")
         out[name] = {"rel_err": rel, "tol": CARD_VS_CPU_TOL, "cpu_s": cpu_s}
@@ -745,6 +796,20 @@ def phase_card_vs_cpu() -> dict:
 
 
 EP_SAMPLERS = (("ddpm", 1000), ("dpm", 10), ("ddim", 50))  # DDPM takes T steps
+# the evaluation phase: evaluate's batch and cost (the run dir's log.json),
+# the dataset's size (its test split holds 3 samples)
+EVAL_B, EVAL_COST, EVAL_SAMPLES = 2, "normalized_mse_loss_per_component", 12
+
+
+def dpm_evaluations(pred, steps: int) -> int:
+    """UNet evaluations of ``predict_dpm(steps)``: its coefficient table's nodes."""
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.diffusion.scheduler import (
+        ddim_timesteps, dpm_solver_coefficients)
+
+    ts = np.unique(ddim_timesteps(pred.num_timesteps, steps))[::-1]
+    return len(dpm_solver_coefficients(pred.scheduler.alphas_cumprod, ts)["t"])
 
 
 def state_checksum(module) -> str:
@@ -761,7 +826,8 @@ def state_checksum(module) -> str:
 
 def write_entry_point_dirs(root: str) -> tuple:
     """A run dir in the reference layout, its VAE dir and a dataset; returns
-    (run dir, checksum of the predictor written, the predictor)."""
+    (run dir, VAE dir, dataset dir, checksum of the predictor written, the
+    predictor)."""
     import numpy as np
 
     from diffusion_model_project_tpu_torch.utils.config import PUBLISHED_UNET_KWARGS
@@ -780,12 +846,16 @@ def write_entry_point_dirs(root: str) -> tuple:
                         "distance_transform": True, "num_slices": S, "num_timesteps": 1000,
                         "vae_path": vae}
     with open(os.path.join(run, "log.json"), "w") as f:
-        json.dump({"params": {"dataset": {"root_dir": data}, "training": {
-            "predictor_type": "latent-diffusion", "predictor": predictor_kwargs}}}, f)
-    # 3 samples: the 70/15/15 split keeps 2 for training, 0 for validation
-    # and 1 for the test split the CLI reads
+        json.dump({"params": {
+            "dataset": {"root_dir": data, "batch_size": EVAL_B, "use_3d": True},
+            "training": {"predictor_type": "latent-diffusion", "predictor": predictor_kwargs,
+                         "cost_function": EVAL_COST}}}, f)
+    # 12 samples: the 70/15/15 split (get_loader's random.Random(2024)) keeps
+    # int(0.7 * 12) = 8 for training, int(0.15 * 12) = 1 for validation and
+    # 3 for the test split the CLIs read (the evaluation's second chunk at
+    # batch 2 is a padded one)
     rng = np.random.default_rng(7)
-    n = 3
+    n = EVAL_SAMPLES
     u2d = (rng.standard_normal((n, S, 3, HW, HW)) * 1e-2).astype(np.float32)
     u2d[:, :, 2] = 0.0
     fields = {"domain.pt": (rng.random((n, S, 1, HW, HW)) > 0.3).astype(np.float32),
@@ -795,7 +865,7 @@ def write_entry_point_dirs(root: str) -> tuple:
               "dxyz.pt": np.ones((n, 3), np.float32)}
     for name, arr in fields.items():
         torch.save(torch.from_numpy(arr), os.path.join(data, "x", name))
-    return run, state_checksum(pred), pred
+    return run, vae, data, state_checksum(pred), pred
 
 
 def ddpm_host_share(run_dir: str, t_short: int = 10) -> dict:
@@ -840,97 +910,252 @@ def ddpm_host_share(run_dir: str, t_short: int = 10) -> dict:
             "host_share": max(0.0, 1.0 - device_ms / wall_ms)}
 
 
-def phase_entry_point(smi: str) -> dict:
-    """The port's CLI on a run dir it wrote, once for each sampler."""
-    import shutil
-    import tempfile
-
+def phase_entry_point(smi: str, run_dir: str, written: str, written_pred) -> dict:
+    """The port's CLI on the run dir ``write_entry_point_dirs`` wrote, once
+    for each sampler."""
     import numpy as np
 
     from diffusion_model_project_tpu_torch import inference
-    from diffusion_model_project_tpu_torch.diffusion.scheduler import (
-        ddim_timesteps, dpm_solver_coefficients)
-    from diffusion_model_project_tpu_torch.ops.cuda import _lib
     from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
     from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
     from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 
-    os.makedirs(_lib.BUILD_DIR, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="entry_point_", dir=_lib.BUILD_DIR)  # inside the checkout
-    try:
+    runs = {}
+    for sampler, steps in EP_SAMPLERS:
+        extra = [] if sampler == "ddpm" else ["--steps", str(steps)]
+        evals = dpm_evaluations(written_pred, steps) if sampler == "dpm" else steps
+        k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
         t0 = time.perf_counter()
-        run_dir, written, written_pred = write_entry_point_dirs(root)
-        log(f"[entry point] wrote the run dir, VAE dir and dataset in "
-            f"{time.perf_counter() - t0:.1f} s")
-        runs = {}
-        for sampler, steps in EP_SAMPLERS:
-            extra = [] if sampler == "ddpm" else ["--steps", str(steps)]
-            if sampler == "dpm":
-                ts = np.unique(ddim_timesteps(1000, steps))[::-1]
-                evals = len(dpm_solver_coefficients(written_pred.scheduler.alphas_cumprod, ts)["t"])
-            else:
-                evals = steps
-            k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
-            t0 = time.perf_counter()
-            res = inference.run(["--model-dir", run_dir, "--sampler", sampler, *extra])
-            cli_s = time.perf_counter() - t0
-            launches = {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES,
-                        "conv3x3": k3.LAUNCHES}
-            expected = {"groupnorm_act": 38 * evals + 26, "fused_attention": 6 * evals,
-                        "conv3x3": 0}
-            # the same counts from the modules the path runs
-            if expected_calls(written_pred, evals) != (38 * evals + 26, 6 * evals):
-                raise RuntimeError(f"the published predictor's GroupNorm / attention counts "
-                                   f"are {expected_calls(written_pred, evals)}")
-            loaded = state_checksum(res.predictor)
-            pred_out = res.prediction
-            mask = np.broadcast_to(res.img == 0, pred_out.shape)
-            ok_out = (pred_out.shape == (1, S, 3, HW, HW) and bool(np.isfinite(pred_out).all())
-                      and not pred_out[mask].any())
-            r = {"evaluations": evals, "launches": launches, "expected": expected,
-                 "checksum_equal": loaded == written, "request_ms": res.seconds * 1e3,
-                 "volumes_per_s": 1.0 / res.seconds, "cli_s": cli_s,
-                 "max_abs_v": float(np.abs(pred_out).max()), "output_ok": ok_out}
-            runs[sampler] = r
-            log(f"[entry point] --sampler {' '.join([sampler] + extra)}: {evals} UNet "
-                f"evaluations; launches {launches} (expected {expected}); checksum "
-                f"{'equal' if r['checksum_equal'] else 'DIFFERENT'}; output "
-                f"{pred_out.shape} finite and masked: {ok_out}, max |v| {r['max_abs_v']:.4e}")
-            log(f"[entry point] --sampler {sampler}: request {r['request_ms']:.1f} ms, "
-                f"{r['volumes_per_s']:.4f} volumes/s (B=1, float32; the CLI call "
-                f"{cli_s:.1f} s with loading) | {smi}")
-            if launches != expected:
-                raise RuntimeError(f"--sampler {sampler} did not go through the kernels as "
-                                   f"expected: {launches} against {expected}")
-            if not r["checksum_equal"]:
-                raise RuntimeError(f"--sampler {sampler}: the loaded weights differ from the "
-                                   f"written ones")
-            if not ok_out:
-                raise RuntimeError(f"--sampler {sampler}: bad output")
-            del res
-        # the kernels at the shapes and dtype the CLI gives them: every
-        # GroupNorm and attention input of one DDIM-50 request, recorded by
-        # a global forward hook in a run of its own (a hook costs host time)
-        seen, handles = record_shapes()
-        try:
-            inference.run(["--model-dir", run_dir, "--sampler", "ddim", "--steps", "50"])
-        finally:
-            for h in handles:
-                h.remove()
-        recorded = {name: sum(v for k, v in seen.items() if k[0] == name)
-                    for name in ("groupnorm_act", "fused_attention")}
-        log(f"[entry point] the DDIM-50 request's kernel inputs: {len(seen)} (shape, dtype) "
-            f"pairs, dtypes {sorted({k[-1] for k in seen})}, calls {recorded}")
-        if recorded != {k: runs["ddim"]["expected"][k] for k in recorded}:
-            raise RuntimeError(f"the DDIM-50 request's hooks saw {recorded} calls")
-        share = ddpm_host_share(run_dir)
-        log(f"[entry point] DDPM request of the CLI at T={share['num_timesteps']} (the run dir's "
-            f"weights, log.json's T set to {share['num_timesteps']}): {share['request_ms']:.1f} "
-            f"ms wall, {share['device_ms']:.1f} ms on the device: host share "
-            f"{share['host_share']:.3f} | {smi}")
-        return {"runs": runs, "shapes": seen, "ddpm_request_host_share": share}
+        res = inference.run(["--model-dir", run_dir, "--sampler", sampler, *extra])
+        cli_s = time.perf_counter() - t0
+        launches = {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES,
+                    "conv3x3": k3.LAUNCHES}
+        expected = {"groupnorm_act": 38 * evals + 26, "fused_attention": 6 * evals,
+                    "conv3x3": 0}
+        # the same counts from the modules the path runs
+        if expected_calls(written_pred, evals) != (38 * evals + 26, 6 * evals):
+            raise RuntimeError(f"the published predictor's GroupNorm / attention counts "
+                               f"are {expected_calls(written_pred, evals)}")
+        loaded = state_checksum(res.predictor)
+        pred_out = res.prediction
+        mask = np.broadcast_to(res.img == 0, pred_out.shape)
+        ok_out = (pred_out.shape == (1, S, 3, HW, HW) and bool(np.isfinite(pred_out).all())
+                  and not pred_out[mask].any())
+        r = {"evaluations": evals, "launches": launches, "expected": expected,
+             "checksum_equal": loaded == written, "request_ms": res.seconds * 1e3,
+             "volumes_per_s": 1.0 / res.seconds, "cli_s": cli_s,
+             "max_abs_v": float(np.abs(pred_out).max()), "output_ok": ok_out}
+        runs[sampler] = r
+        log(f"[entry point] --sampler {' '.join([sampler] + extra)}: {evals} UNet "
+            f"evaluations; launches {launches} (expected {expected}); checksum "
+            f"{'equal' if r['checksum_equal'] else 'DIFFERENT'}; output "
+            f"{pred_out.shape} finite and masked: {ok_out}, max |v| {r['max_abs_v']:.4e}")
+        log(f"[entry point] --sampler {sampler}: request {r['request_ms']:.1f} ms, "
+            f"{r['volumes_per_s']:.4f} volumes/s (B=1, float32; the CLI call "
+            f"{cli_s:.1f} s with loading) | {smi}")
+        if launches != expected:
+            raise RuntimeError(f"--sampler {sampler} did not go through the kernels as "
+                               f"expected: {launches} against {expected}")
+        if not r["checksum_equal"]:
+            raise RuntimeError(f"--sampler {sampler}: the loaded weights differ from the "
+                               f"written ones")
+        if not ok_out:
+            raise RuntimeError(f"--sampler {sampler}: bad output")
+        del res
+    # the kernels at the shapes and dtype the CLI gives them: every
+    # GroupNorm and attention input of one DDIM-50 request, recorded by
+    # a global forward hook in a run of its own (a hook costs host time)
+    seen, handles = record_shapes()
+    try:
+        inference.run(["--model-dir", run_dir, "--sampler", "ddim", "--steps", "50"])
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        for h in handles:
+            h.remove()
+    recorded = {name: sum(v for k, v in seen.items() if k[0] == name)
+                for name in ("groupnorm_act", "fused_attention")}
+    log(f"[entry point] the DDIM-50 request's kernel inputs: {len(seen)} (shape, dtype) "
+        f"pairs, dtypes {sorted({k[-1] for k in seen})}, calls {recorded}")
+    if recorded != {k: runs["ddim"]["expected"][k] for k in recorded}:
+        raise RuntimeError(f"the DDIM-50 request's hooks saw {recorded} calls")
+    share = ddpm_host_share(run_dir)
+    log(f"[entry point] DDPM request of the CLI at T={share['num_timesteps']} (the run dir's "
+        f"weights, log.json's T set to {share['num_timesteps']}): {share['request_ms']:.1f} "
+        f"ms wall, {share['device_ms']:.1f} ms on the device: host share "
+        f"{share['host_share']:.3f} | {smi}")
+    return {"runs": runs, "shapes": seen, "ddpm_request_host_share": share}
+
+
+def module_calls(pred) -> dict:
+    """GroupNorm calls of each VAE branch and of the UNet, and the UNet's
+    attention calls, counted from the modules."""
+    from diffusion_model_project_tpu_torch.models.layers import GroupNorm, MultiheadSelfAttention
+
+    def count(module, cls):
+        return sum(isinstance(m, cls) for m in module.modules())
+
+    out = {name: count(getattr(pred.vae, name), GroupNorm)
+           for name in ("encoder_2d", "encoder_3d", "decoder_2d", "decoder_3d")}
+    return {**out, "unet": count(pred.model, GroupNorm),
+            "attention": count(pred.model, MultiheadSelfAttention)}
+
+
+def _launches() -> dict:
+    from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
+    from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
+    from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
+
+    return {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES, "conv3x3": k3.LAUNCHES}
+
+
+def _zero_launches() -> None:
+    from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
+    from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
+    from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
+
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+
+
+def _check_launches(path: str, launches: dict, gn: int, attn: int) -> dict:
+    expected = {"groupnorm_act": gn, "fused_attention": attn, "conv3x3": 0}
+    if launches != expected:
+        raise RuntimeError(f"{path} did not go through the kernels as expected: {launches} "
+                           f"against {expected}")
+    return expected
+
+
+def phase_evaluation(smi: str, run_dir: str, vae_dir: str, data_dir: str, written_pred,
+                     held: set) -> dict:
+    """The port's evaluation entry points on the entry point's run dir,
+    float32: (a) ``evaluate`` at B=2; (b) ``eval_testset_end2end`` over the
+    test split: DDIM-50 at batch 1 and 2, DPM-10, --sanity-mode and
+    --cross-mode; (c) ``inference_vae.run`` in modes 2d, 3d and cross. Each
+    run's launches must equal the counts derived from the modules (K3 never).
+    Then one more run of each path under a global forward hook records the
+    GroupNorm and attention inputs; the (shape, dtype) pairs outside ``held``
+    (those of the earlier phases) are returned for phase "eval kernels"."""
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch import evaluate, inference_vae
+    from diffusion_model_project_tpu_torch.scripts import eval_testset_end2end as e2e
+
+    calls = module_calls(written_pred)
+    unet_gn, unet_attn = calls["unet"], calls["attention"]
+    out_root = os.path.join(os.path.dirname(run_dir), "eval_out")
+    res = {"evaluate": None, "end2end": {}, "inference_vae": {}}
+
+    # (a) evaluate: per batch E3D encode_target, E2D conditioning, one UNet evaluation
+    _zero_launches()
+    t0 = time.perf_counter()
+    ev = evaluate.run(["--model-dir", run_dir])
+    cli_s = time.perf_counter() - t0
+    nb = len(ev.losses)
+    expected = _check_launches(
+        "evaluate", _launches(), nb * (calls["encoder_3d"] + calls["encoder_2d"] + unet_gn),
+        nb * unet_attn)
+    with open(ev.result_path) as f:
+        written = f.read().splitlines()
+    if not (nb >= 2 and np.isfinite(ev.test_loss) and written[1] == f"test_loss: {ev.test_loss}"):
+        raise RuntimeError(f"evaluate: {nb} batches, loss {ev.test_loss}, wrote {written}")
+    res["evaluate"] = {"batches": nb, "batch_size": EVAL_B, "losses": ev.losses,
+                       "test_loss": ev.test_loss, "batch_seconds": ev.batch_seconds,
+                       "cli_s": cli_s, "launches": expected}
+    log(f"[evaluation] evaluate: {nb} test batches (B={EVAL_B}, the last short), loss "
+        f"{ev.test_loss:.6f} ({EVAL_COST}); launches {expected}; seconds a batch "
+        + ", ".join(f"{x:.3f}" for x in ev.batch_seconds) + f"; the CLI call {cli_s:.1f} s | {smi}")
+
+    # (b) the end-to-end script; per chunk: E2D + sampler's UNet evaluations + D3D,
+    # or the VAE-only path's two halves
+    ddim_gn, ddim_attn = expected_calls(written_pred, STEPS)
+    dpm_evals = dpm_evaluations(written_pred, 10)
+    modes = {
+        "ddim_b1": (["--sampler", "ddim", "--steps", str(STEPS)], ddim_gn, ddim_attn),
+        "ddim_b2": (["--sampler", "ddim", "--steps", str(STEPS), "--batch-size", "2"],
+                    ddim_gn, ddim_attn),
+        "dpm10": (["--sampler", "dpm", "--steps", "10"],
+                  *expected_calls(written_pred, dpm_evals)),
+        "sanity": (["--sanity-mode"], calls["encoder_3d"] + calls["decoder_3d"], 0),
+        "cross": (["--cross-mode"], calls["encoder_2d"] + calls["decoder_3d"], 0),
+    }
+    base = ["--diffusion-model-path", run_dir, "--dataset-dir", data_dir]
+    for name, (flags, gn, attn) in modes.items():
+        _zero_launches()
+        r = e2e.run(base + flags + ["--output-dir", os.path.join(out_root, name)])
+        rows = r.per_sample
+        chunks = -(-len(rows) // r.args.batch_size)
+        expected = _check_launches(f"eval_testset_end2end {name}", _launches(),
+                                   chunks * gn, chunks * attn)
+        with open(r.json_path) as f:
+            report = json.load(f)
+        ok = (len(rows) == 3 and [x["sample_id"] for x in report["per_sample_results"]]
+              == [0, 1, 2] and all(np.isfinite(x["nmae_total"]) for x in rows))
+        if not ok:
+            raise RuntimeError(f"eval_testset_end2end {name}: bad report {r.json_path}")
+        res["end2end"][name] = {
+            "chunks": chunks, "launches": expected, "evaluation_mode": report["evaluation_mode"],
+            "nmae_total": [x["nmae_total"] for x in rows],
+            "time_sec": [x["time_sec"] for x in rows], "steady_s_per_sample": r.steady_seconds,
+            "mean_s_per_sample": float(np.mean([x["time_sec"] for x in rows]))}
+        log(f"[evaluation] eval_testset_end2end {' '.join(flags)}: {len(rows)} samples in "
+            f"{chunks} chunks; launches {expected}; nMAE "
+            + ", ".join(f"{x['nmae_total']:.4f}" for x in rows)
+            + "; s a sample " + ", ".join(f"{x['time_sec']:.3f}" for x in rows)
+            + f"; steady {r.steady_seconds:.3f}, mean "
+            f"{res['end2end'][name]['mean_s_per_sample']:.3f} s a sample | {smi}")
+    # the host's share of a sample: the metric suite on one 256^2 x 11 sample
+    from diffusion_model_project_tpu_torch.losses.eval_metrics import compute_all_metrics
+
+    rng = np.random.default_rng(9)
+    pred_np, target_np = rng.standard_normal((2, 1, S, 3, HW, HW)).astype(np.float32)
+    mask_np = (rng.random((1, S, 1, HW, HW)) > 0.3).astype(np.float32)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        compute_all_metrics(pred_np, target_np, NORM_OUTPUT, mask=mask_np)
+    res["metrics_s_per_sample"] = (time.perf_counter() - t0) / 3
+    log(f"[evaluation] the metric suite (compute_all_metrics, host): "
+        f"{res['metrics_s_per_sample'] * 1e3:.1f} ms a sample | {smi}")
+    b1, b2 = (np.asarray(res["end2end"][k]["nmae_total"]) for k in ("ddim_b1", "ddim_b2"))
+    rel = float(np.abs(b2 - b1).max() / np.abs(b1).max())
+    res["ddim_batch_rel_diff"] = rel
+    log(f"[evaluation] DDIM-50 per-sample nMAE, batch 2 against batch 1: max rel diff "
+        f"{rel:.3e} (tol 1e-3)")
+    if not rel <= 1e-3:
+        raise RuntimeError(f"DDIM-50 at batch 2 differs from batch 1: {rel:.3e}")
+
+    # (c) inference_vae: one encode and one decode a mode
+    vae_modes = {"2d": ("encoder_2d", "decoder_2d"), "3d": ("encoder_3d", "decoder_3d"),
+                 "cross": ("encoder_2d", "decoder_3d")}
+    for mode, (enc, dec) in vae_modes.items():
+        _zero_launches()
+        r = inference_vae.run(["--vae-path", vae_dir, "--dataset-dir", data_dir, "--mode", mode])
+        expected = _check_launches(f"inference_vae --mode {mode}", _launches(),
+                                   calls[enc] + calls[dec], 0)
+        if not (r.model_type == "dual_full" and np.isfinite(r.metrics["mae_total"])
+                and r.metrics["mae_total"] > 0):
+            raise RuntimeError(f"inference_vae --mode {mode}: {r.model_type}, {r.metrics}")
+        res["inference_vae"][mode] = {"metrics": r.metrics, "seconds": r.seconds,
+                                      "launches": expected}
+        log(f"[evaluation] inference_vae --mode {mode}: masked MAE {r.metrics['mae_total']:.6f}; "
+            f"launches {expected}; encode + decode {r.seconds * 1e3:.1f} ms | {smi}")
+
+    # the kernels' inputs on these paths, in runs of their own (a hook costs host time)
+    seen, handles = record_shapes()
+    try:
+        evaluate.run(["--model-dir", run_dir])
+        for name in ("ddim_b2", "sanity", "cross"):
+            e2e.run(base + modes[name][0] + ["--num-samples", "2" if name == "ddim_b2" else "1",
+                                             "--output-dir", os.path.join(out_root, "hooked")])
+        for mode in vae_modes:
+            inference_vae.run(["--vae-path", vae_dir, "--dataset-dir", data_dir, "--mode", mode])
+    finally:
+        for h in handles:
+            h.remove()
+    new = {k: v for k, v in seen.items() if k not in held}
+    log(f"[evaluation] the kernels' inputs on these paths: {len(seen)} (shape, dtype) pairs, "
+        f"{len(new)} not held by an earlier phase: "
+        + ", ".join(f"{k[0]} {k[1]}" for k in sorted(new, key=str)))
+    res["shapes"] = seen
+    res["new_shapes"] = new
+    return res
 
 
 def _totals(rs: list) -> dict:
@@ -946,12 +1171,16 @@ def _totals(rs: list) -> dict:
             "library_device_ms": None if None in lib_dev else tot("library_device_ms")}
 
 
-def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list) -> list:
+def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_rows: list,
+              eval_paths: list) -> list:
     """One entry per kernel; times are per request of its path: one
     predict_ddim for K1 and K2, one call at each probe stage (the planner's
     tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
     for K3), ``launches_by_path`` every counted path's; ``cli`` holds K1 and
-    K2 at the CLI's own shapes and dtype, a DDIM-50 request of the CLI."""
+    K2 at the CLI's own shapes and dtype, a DDIM-50 request of the CLI;
+    ``evaluation`` at the evaluation paths' (shape, dtype) pairs that no
+    earlier phase held, calls counted over phase "evaluation"'s hooked runs,
+    with the launches of each evaluation path."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
                           "diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py:47"),
@@ -972,6 +1201,12 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list) -> list
                             "launches": by_path["cli_ddim"][name],
                             "rel_err": max(r["rel_err"] for r in cli),
                             "tol": max(r["tol"] for r in cli), **_totals(cli)}
+        ev = [r for r in eval_rows if r["kernel"] == name]
+        if ev:
+            entry["evaluation"] = {"dtypes": sorted({r["dtype"] for r in ev}),
+                                   "launches": {p: by_path[p][name] for p in eval_paths},
+                                   "rel_err": max(r["rel_err"] for r in ev),
+                                   "tol": max(r["tol"] for r in ev), **_totals(ev)}
         out.append(entry)
     return out
 
@@ -995,19 +1230,39 @@ def main() -> int:
     mark = dict(PROFILER)
     rows, k1_parts = phase_kernels(sl["shapes"], sl["launches"])
     tallies.append(tally("kernels", mark))
-    ep = phase_entry_point(device["nvidia_smi"])
+    from diffusion_model_project_tpu_torch.ops.cuda import _lib
+
+    os.makedirs(_lib.BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="entry_point_", dir=_lib.BUILD_DIR)  # inside the checkout
+    try:
+        t0 = time.perf_counter()
+        run_dir, vae_dir, data_dir, written, written_pred = write_entry_point_dirs(root)
+        log(f"[entry point] wrote the run dir, VAE dir and dataset ({EVAL_SAMPLES} samples) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ep = phase_entry_point(device["nvidia_smi"], run_dir, written, written_pred)
+        mark = dict(PROFILER)
+        cli_rows, cli_k1_parts = phase_kernels(
+            ep["shapes"], {k: v for k, v in ep["runs"]["ddim"]["launches"].items() if v},
+            tag="cli kernels")
+        tallies.append(tally("cli kernels", mark))
+        ev = phase_evaluation(device["nvidia_smi"], run_dir, vae_dir, data_dir, written_pred,
+                              set(sl["shapes"]) | set(ep["shapes"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     mark = dict(PROFILER)
-    cli_rows, cli_k1_parts = phase_kernels(
-        ep["shapes"], {k: v for k, v in ep["runs"]["ddim"]["launches"].items() if v},
-        tag="cli kernels")
-    tallies.append(tally("cli kernels", mark))
+    eval_rows, eval_k1_parts = phase_kernels(
+        ev["new_shapes"], {"groupnorm_act": 1, "fused_attention": 1}, tag="eval kernels")
+    tallies.append(tally("eval kernels", mark))
     cvc = phase_card_vs_cpu()
+    eval_paths = {"evaluate": ev["evaluate"]["launches"],
+                  **{f"eval_{k}": v["launches"] for k, v in ev["end2end"].items()},
+                  **{f"inference_vae_{k}": v["launches"] for k, v in ev["inference_vae"].items()}}
     by_path = {"ddim_slice": {**sl["launches"], "conv3x3": 0},
                "conv_probe": {"groupnorm_act": 0, "fused_attention": 0,
                               "conv3x3": conv_launches},
-               **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}}
+               **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}, **eval_paths}
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches}, by_path,
-                        cli_rows)
+                        cli_rows, eval_rows, sorted(eval_paths))
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
@@ -1016,6 +1271,10 @@ def main() -> int:
         "card_vs_cpu": cvc, "cli_kernel_rows": cli_rows, "cli_k1_request_ms": cli_k1_parts,
         "entry_point": {**ep, "shapes": [{"key": list(map(str, k)), "calls": v}
                                          for k, v in ep["shapes"].items()]},
+        "evaluation": {**ev, **{key: [{"key": list(map(str, k)), "calls": v}
+                                      for k, v in ev[key].items()]
+                                for key in ("shapes", "new_shapes")}},
+        "eval_kernel_rows": eval_rows, "eval_k1_request_ms": eval_k1_parts,
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

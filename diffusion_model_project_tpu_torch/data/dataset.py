@@ -9,8 +9,11 @@ component sign flips, ``statistics.json`` written from the training subset,
 the 70/15/15 split from ``splits.json`` or ``random.Random(seed)`` (seed
 2024), optional k-fold. Data lives in host numpy; batches are dicts of numpy
 arrays. A missing or empty dataset dir raises (the JAX package downloads the
-Zenodo record there). The VAE datasets, ``split.py``, ``statistics.py`` and
-``paired_sampler.py`` are not ported yet.
+Zenodo record there). ``MicroFlowDatasetVAE`` is the VAE view (reference
+VAE_model/utils/dataset.py): the index space doubled to 2N, 2D samples then
+3D ones, each item (C, D, H, W). The paired VAE view, ``split.py``,
+``statistics.py`` and ``paired_sampler.py`` belong to training and are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -320,6 +323,69 @@ class MicroFlowDataset:
         if self.augment:
             sample = self._augment_sample({k: v.copy() for k, v in sample.items()},
                                           rng=self._aug_rng(idx))
+        return sample
+
+
+class MicroFlowDatasetVAE:
+    """VAE view: index space doubled to 2N (2D then 3D samples), per-item
+    layout (C, D, H, W) (reference VAE_model/utils/dataset.py:286-469)."""
+
+    def __init__(self, root_dir: str, augment: bool = False, seed: int = 0,
+                 data: Optional[Dict[str, np.ndarray]] = None):
+        base = MicroFlowDataset(root_dir, augment=False, use_3d=True, data=data)
+        self.data = base.data
+        self.root_dir = root_dir
+        self.augment = augment
+        self._seed = seed
+        self._epoch: Optional[int] = None
+        self._rng = np.random.default_rng(seed)
+
+    def set_epoch(self, epoch: int) -> None:
+        """(seed, epoch, idx)-derived augmentation for deterministic resume;
+        see MicroFlowDataset.set_epoch."""
+        self._epoch = int(epoch)
+
+    @property
+    def num_microstructures(self) -> int:
+        return self.data["microstructure"].shape[0]
+
+    def __len__(self) -> int:
+        return 2 * self.num_microstructures
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        n = self.num_microstructures
+        is_2d = idx < n
+        base_idx = idx if is_2d else idx - n
+        key = "velocity_input" if is_2d else "velocity"
+        vel = self.data[key][base_idx].astype(np.float32)                 # (D, 3, H, W)
+        micro = self.data["microstructure"][base_idx].astype(np.float32)  # (D, 1, H, W)
+        pressure = self.data["pressure"][base_idx].astype(np.float32)
+        sample = {
+            "velocity": np.transpose(vel, (1, 0, 2, 3)),         # (3, D, H, W)
+            "microstructure": np.transpose(micro, (1, 0, 2, 3)),  # (1, D, H, W)
+            # part of the reference item contract (VAE dataset.py:461-469)
+            # even though the final trainers never read them
+            "pressure": np.transpose(pressure, (1, 0, 2, 3)),
+            "dxyz": self.data["dxyz"][base_idx].astype(np.float32),
+            "is_2d": np.asarray(is_2d),
+            "original_idx": np.asarray(base_idx),
+        }
+        if self.augment:
+            rng = (self._rng if self._epoch is None else
+                   np.random.default_rng((self._seed, self._epoch, int(idx))))
+            sample = self._augment_sample(sample, rng=rng)
+        return sample
+
+    @staticmethod
+    def _augment_sample(sample, rng):
+        """Per-axis flips with velocity sign negation, the depth flip negating
+        vz (reference VAE dataset.py:439-459). Layout (C, D, H, W)."""
+        flips = [(-1, 0), (-2, 1), (-3, 2)]  # (axis, velocity component to negate)
+        for axis, comp in flips:
+            if rng.random() < 0.5:
+                for key in ("velocity", "microstructure", "pressure"):
+                    sample[key] = np.flip(sample[key], axis=axis).copy()
+                sample["velocity"][comp] = -sample["velocity"][comp]
         return sample
 
 

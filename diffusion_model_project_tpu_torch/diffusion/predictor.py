@@ -13,7 +13,9 @@ VAE sees (B, C, S, H, W) and the UNet (B*ld, C, lh, lw). Module names follow
 the reference predictor state dict (``model.*``, ``vae.*``, ``scheduler.*``,
 ``normalizer.{input,output}.scale_factors``, ``distance_transform``).
 Each sampler is a host loop of UNet calls (one dispatch a step). The
-training entry points (``forward``, ``encode_target``) are not ported yet.
+noise-prediction step of training and evaluation (``encode_target`` the
+target with E3D, ``forward`` one UNet evaluation at one timestep a latent
+slice) returns its tensors in the port's layout, (B*ld, C, lh, lw).
 """
 from __future__ import annotations
 
@@ -144,6 +146,49 @@ class LatentDiffusionPredictor(nn.Module):
         cd = self.compute_dtype
         unet_in = torch.cat([x.to(cd), z_cond.to(cd), m_cond.to(cd)], dim=1)
         return self.model(unet_in, t).float()
+
+    # ----------------------------------------------------------------- train
+
+    def encode_target(self, velocity_3d: torch.Tensor) -> torch.Tensor:
+        """(B,S,3,H,W) -> E3D mu latents (B,ld,latent,lh,lw), float32; the VAE
+        runs in the compute dtype (reference predictor.py:1042-1085)."""
+        v = self.normalizer["output"].normalize(velocity_3d.to(self.device, torch.float32),
+                                                channel_axis=2)
+        mu, _ = self.vae.encode_3d_deterministic(v.transpose(1, 2).to(self.compute_dtype))
+        return mu.float().transpose(1, 2)
+
+    def forward(self, img: torch.Tensor, velocity_2d: torch.Tensor, x_start: torch.Tensor, *,
+                noise: Optional[torch.Tensor] = None, t: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The noise-prediction step: each latent slice draws its own
+        timestep (reference predictor.py:736), ``q_sample``, one UNet
+        evaluation.
+
+        x_start: target latents (B, ld, latent, lh, lw) from ``encode_target``;
+        ``noise`` follows the same contract (any shape of as many elements),
+        ``t`` is (B*ld,) in [0, T). Whichever of the two is not given is drawn
+        from ``generator`` (noise first, then t) on the generator's device.
+        Returns (eps_pred, noise, t, x_t), eps_pred / noise / x_t as
+        (B*ld, latent, lh, lw) float32. Not under ``inference_mode``: a
+        caller that needs no gradients wraps it in ``torch.no_grad()``."""
+        img = img.to(self.device, torch.float32)
+        velocity_2d = velocity_2d.to(self.device, torch.float32)
+        z_cond, m_cond = self.prepare_conditioning(img, velocity_2d)
+        b, ld = img.shape[0], x_start.shape[1]
+        x0 = x_start.to(self.device, torch.float32).reshape(
+            b * ld, self.latent_channels, x_start.shape[-2], x_start.shape[-1])
+        if (noise is None or t is None) and generator is None:
+            raise ValueError("forward() needs a generator when noise or t is not given")
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, device=generator.device)
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b * ld,), generator=generator,
+                              device=generator.device)
+        noise = noise.to(self.device, torch.float32).reshape(x0.shape)
+        t = t.to(self.device, torch.int64)
+        x_t = self.scheduler.q_sample(x0, t, noise)
+        return self._unet_eps(x_t, z_cond, m_cond, t), noise, t, x_t
 
     # ------------------------------------------------------------- inference
 

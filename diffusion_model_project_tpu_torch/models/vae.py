@@ -2,11 +2,13 @@
 
 Counterpart of the JAX ``models/vae.py``: ``ResidualBlock``, ``FiLM``,
 ``ConditionalResidualBlock``, ``Encoder``, ``Decoder`` (each optionally
-FiLM-conditioned on a per-sample is-3D flag) and ``DualBranchVAE`` with the
-logvar clamp to [-10, 10]. Module names follow the reference state dict
-(``encoder_2d.res1_1.norm1.weight``, ``decoder_3d.film_in.mlp.0.weight``,
-...). ``AttentionBlock``, ``VariationalAutoencoder`` and the cross and
-alignment paths are not ported yet.
+FiLM-conditioned on a per-sample is-3D flag), the standard single-branch
+``VariationalAutoencoder`` (state-dict keys ``encoder.*`` / ``decoder.*``),
+``DualBranchVAE`` with its composite, cross and alignment paths, the logvar
+clamp to [-10, 10] and the sum-form KL. Module names follow the reference
+state dict (``encoder_2d.res1_1.norm1.weight``,
+``decoder_3d.film_in.mlp.0.weight``, ...). Stochastic paths draw from a
+caller's ``torch.Generator``. ``AttentionBlock`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -225,6 +227,35 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
     return mu + torch.exp(0.5 * logvar) * eps.to(mu.device)
 
 
+class VariationalAutoencoder(nn.Module):
+    """Standard single-branch VAE (reference VAE_model/src/vae/autoencoder.py);
+    ``conditional``: the FiLM-conditioned encoder and decoder, which then
+    take a per-sample condition."""
+
+    def __init__(self, in_channels: int = 3, latent_channels: int = 8, kernel_size: int = 3,
+                 conditional: bool = False, features: Sequence[int] = REFERENCE_FEATURES):
+        super().__init__()
+        self.latent_channels = latent_channels
+        self.encoder = Encoder(in_channels, latent_channels, kernel_size, features, conditional)
+        self.decoder = Decoder(latent_channels, in_channels, kernel_size, features, conditional)
+
+    def encode(self, x, generator: torch.Generator, condition=None):
+        mu, logvar = self.encoder(x, condition)
+        logvar = _clamp_logvar(logvar)
+        return reparameterize(mu, logvar, generator), (mu, logvar)
+
+    def encode_deterministic(self, x, condition=None):
+        mu, logvar = self.encoder(x, condition)
+        return mu, (mu, _clamp_logvar(logvar))
+
+    def decode(self, z, condition=None):
+        return self.decoder(z, condition)
+
+    def forward(self, x, generator: torch.Generator, condition=None):
+        z, (mu, logvar) = self.encode(x, generator, condition)
+        return self.decode(z, condition), (mu, logvar)
+
+
 class DualBranchVAE(nn.Module):
     """Four-module dual-branch VAE; the 2D->3D inference path is
     x_2d -> encoder_2d -> [latent diffusion] -> decoder_3d.
@@ -281,3 +312,45 @@ class DualBranchVAE(nn.Module):
 
     def decode_3d(self, z):
         return self.decoder_3d(z, self._cond(z, True))
+
+    # --- composite paths -----------------------------------------------------
+
+    def forward_2d(self, x_2d, generator: torch.Generator):
+        z, (mu, logvar) = self.encode_2d(x_2d, generator)
+        return self.decode_2d(z), (mu, logvar)
+
+    def forward_2d_deterministic(self, x_2d):
+        z, (mu, _) = self.encode_2d_deterministic(x_2d)
+        return self.decode_2d(z), mu
+
+    def forward_3d(self, x_3d, generator: torch.Generator):
+        z, (mu, logvar) = self.encode_3d(x_3d, generator)
+        return self.decode_3d(z), (mu, logvar)
+
+    def forward_cross_2d_to_3d(self, x_2d):
+        z_2d, _ = self.encode_2d_deterministic(x_2d)
+        return self.decode_3d(z_2d), z_2d
+
+    def forward_cross_3d_to_2d(self, x_3d, generator: torch.Generator):
+        z_3d, _ = self.encode_3d(x_3d, generator)
+        return self.decode_2d(z_3d), z_3d
+
+    def compute_alignment_loss(self, x_2d, x_3d, mode: str = "symmetric"):
+        """Mean squared distance of the two branches' deterministic latents;
+        ``one_way`` / ``stop_grad`` pass no gradient into E3D."""
+        if mode not in ("symmetric", "one_way", "stop_grad"):
+            raise ValueError(f"Unknown alignment mode: {mode}")
+        z_2d, _ = self.encode_2d_deterministic(x_2d)
+        z_3d, _ = self.encode_3d_deterministic(x_3d)
+        if mode != "symmetric":
+            z_3d = z_3d.detach()
+        return torch.mean(torch.square(z_2d - z_3d))
+
+    def predict_2d_to_3d(self, x_2d, generator: torch.Generator):
+        z_2d, _ = self.encode_2d(x_2d, generator)
+        return self.decode_3d(z_2d)
+
+
+def kl_divergence_sum(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Sum-form KL (reference dual_vae/model.py:380-382)."""
+    return -0.5 * torch.sum(1 + logvar - torch.square(mu) - torch.exp(logvar))

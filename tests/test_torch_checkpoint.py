@@ -168,60 +168,69 @@ def _legacy(sd, mapping):
     return out
 
 
-def make_run_dir(tmp, flavour: str, sources) -> str:
-    """A diffusion run dir of ``flavour`` (and the VAE dir(s) it names)."""
+def write_vae_dir(tmp, flavour: str, vp) -> dict:
+    """The VAE dir(s) of a run dir of ``flavour``, from the VAE params
+    ``vp``; returns the VAE paths its ``log.json`` names."""
     from diffusion_model_project_tpu.utils import torch_import as ti
 
-    run, vae = tmp / "run", tmp / "vae"
-    run.mkdir()
+    vae = tmp / "vae"
     vae.mkdir()
-    pred = sources["conditional" if flavour == "standard_conditional" else "plain"]
-    vp = pred.vae_params
     paths = {"vae_path": str(vae)}
     if flavour == "native":
-        jckpt.save_predictor(pred, str(run / "model.msgpack"))
         jckpt._atomic_write_msgpack(str(vae / "vae.msgpack"), _np(vp))
         _vae_log(vae)
     elif flavour == "pt":
-        te.save_torch_state_dict(te.export_predictor(pred), str(run / "best_model.pt"))
         te.save_torch_state_dict(te.export_dual_vae(vp), str(vae / "vae.pt"))
         _vae_log(vae)
+    elif flavour == "dual_stage1_3d":
+        te.save_torch_state_dict(te.export_dual_vae(
+            {"encoder_3d": vp["encoder_3d"], "decoder_3d": vp["decoder_3d"]}),
+            str(vae / "vae.pt"))
+        _vae_log(vae)
+    elif flavour == "split_mixed":
+        enc = tmp / "stage2"
+        enc.mkdir()
+        jckpt._atomic_write_msgpack(str(enc / "best_model.msgpack"), _np(
+            {"encoder_2d": vp["encoder_2d"], "decoder_2d": vp["decoder_2d"]}))
+        te.save_torch_state_dict(te.export_dual_vae(
+            {"encoder_3d": vp["encoder_3d"], "decoder_3d": vp["decoder_3d"]}),
+            str(vae / "best_model.pt"))
+        _vae_log(vae)
+        paths = {"vae_encoder_path": str(enc), "vae_decoder_path": str(vae)}
+    elif flavour in ("standard", "standard_conditional"):
+        te.save_torch_state_dict(_standard_sd(vp), str(vae / "vae.pt"))
+        _vae_log(vae, conditional=flavour == "standard_conditional")
+    elif flavour == "legacy_layers":
+        sd = _standard_sd(vp)
+        sd = {**_prefixed("encoder.", _legacy(ti.strip_prefix(sd, "encoder."),
+                                              ti._ENCODER_LAYER_MAP)),
+              **_prefixed("decoder.", _legacy(ti.strip_prefix(sd, "decoder."),
+                                              ti._DECODER_LAYER_MAP))}
+        assert any(k.startswith("encoder.layers.11.") for k in sd)
+        te.save_torch_state_dict(sd, str(vae / "model.pt"))
+    elif flavour == "whole_module":
+        from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
+
+        module = DualBranchVAE(latent_channels=LATENT, features=VAE_FEATURES)
+        module.load_state_dict(weights.to_tensors(weights.export_dual_vae(vp)), strict=True)
+        torch.save(module, str(vae / "vae.pt"))
+    else:
+        raise AssertionError(flavour)
+    return paths
+
+
+def make_run_dir(tmp, flavour: str, sources) -> str:
+    """A diffusion run dir of ``flavour`` (and the VAE dir(s) it names)."""
+    run = tmp / "run"
+    run.mkdir()
+    pred = sources["conditional" if flavour == "standard_conditional" else "plain"]
+    paths = write_vae_dir(tmp, flavour, pred.vae_params)
+    if flavour == "native":
+        jckpt.save_predictor(pred, str(run / "model.msgpack"))
+    elif flavour == "pt":
+        te.save_torch_state_dict(te.export_predictor(pred), str(run / "best_model.pt"))
     else:
         _unet_only_pt(pred, run / "model.pt")
-        if flavour == "dual_stage1_3d":
-            te.save_torch_state_dict(te.export_dual_vae(
-                {"encoder_3d": vp["encoder_3d"], "decoder_3d": vp["decoder_3d"]}),
-                str(vae / "vae.pt"))
-            _vae_log(vae)
-        elif flavour == "split_mixed":
-            enc = tmp / "stage2"
-            enc.mkdir()
-            jckpt._atomic_write_msgpack(str(enc / "best_model.msgpack"), _np(
-                {"encoder_2d": vp["encoder_2d"], "decoder_2d": vp["decoder_2d"]}))
-            te.save_torch_state_dict(te.export_dual_vae(
-                {"encoder_3d": vp["encoder_3d"], "decoder_3d": vp["decoder_3d"]}),
-                str(vae / "best_model.pt"))
-            _vae_log(vae)
-            paths = {"vae_encoder_path": str(enc), "vae_decoder_path": str(vae)}
-        elif flavour in ("standard", "standard_conditional"):
-            te.save_torch_state_dict(_standard_sd(vp), str(vae / "vae.pt"))
-            _vae_log(vae, conditional=flavour == "standard_conditional")
-        elif flavour == "legacy_layers":
-            sd = _standard_sd(vp)
-            sd = {**_prefixed("encoder.", _legacy(ti.strip_prefix(sd, "encoder."),
-                                                  ti._ENCODER_LAYER_MAP)),
-                  **_prefixed("decoder.", _legacy(ti.strip_prefix(sd, "decoder."),
-                                                  ti._DECODER_LAYER_MAP))}
-            assert any(k.startswith("encoder.layers.11.") for k in sd)
-            te.save_torch_state_dict(sd, str(vae / "model.pt"))
-        elif flavour == "whole_module":
-            from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
-
-            module = DualBranchVAE(latent_channels=LATENT, features=VAE_FEATURES)
-            module.load_state_dict(weights.to_tensors(weights.export_dual_vae(vp)), strict=True)
-            torch.save(module, str(vae / "vae.pt"))
-        else:
-            raise AssertionError(flavour)
     _write_log(run, paths)
     return str(run)
 
