@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 11, 6, 7 (the conv probe's
+Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 12, 11, 13, 6, 7 (the conv probe's
 device times are read before phase 3 profiles a UNet forward; see
 device_kernels); any failure raises and the script exits non-zero without
 printing a result line:
@@ -40,8 +40,8 @@ printing a result line:
      steps; forward's eps_pred and the eval step's loss from the same noise
      and t; the sanity (E3D, D3D) and cross (E2D, D3D) reconstructions;
   7. the kernel table as one JSON line (phase 9's numbers under each
-     kernel's "cli", phase 11's under its "evaluation"), then the result
-     line;
+     kernel's "cli", phase 11's under its "evaluation", phase 13's and the
+     training paths' launches under its "training"), then the result line;
   8. entry point: a run dir in the reference layout (log.json naming a VAE
      dir, the dataset, evaluate's batch 2 and cost; best_model.pt of a
      seeded published-width predictor, float32; vae.pt with dual_full keys
@@ -72,7 +72,24 @@ printing a result line:
      GroupNorm and attention inputs;
  11. eval kernels: phase 4 at the (shape, dtype) pairs of phase 10 that no
      earlier phase held, float32 tolerances, calls counted over phase 10's
-     hooked runs.
+     hooked runs;
+ 12. training: the port's train CLI at the published UNet on phase 8's
+     dataset (8 train, 1 validation, 3 test samples) and VAE dir, B=2,
+     every step timed (host clock, synchronized) with its launches held to
+     the module-derived counts (in a train step K1 for the frozen E3D + E2D
+     encodes and no K2; in a validation or test step every call): (a) 2 epochs, float32 (step, validation-batch and epoch
+     seconds, peak memory, finite losses, the run dir's files); (b) the
+     physics and velocity losses, 1 epoch (heavy and plain steps, finite
+     components); (c) 1 epoch, then --resume to 2: epoch 1's losses within
+     1e-3 of (a)'s; (d) the inference CLI, DDIM-50, on (a)'s run dir; (e)
+     30 steps on one fixed batch (the loss must fall), then one train step
+     under torch.profiler, its device time by kernel; (f) one train step's
+     UNet gradients on the card and on the CPU, 128^2 x 3, B=1, float32,
+     TF32 off, plain and with physics, within 1e-3; (g) 1 epoch in
+     bfloat16; then the kernel inputs of the validation and test passes
+     and of a train step, recorded by a global hook;
+ 13. train kernels: phase 4 at the pairs of phase 12 that no earlier phase
+     held.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -345,14 +362,18 @@ def make_inputs(b, s, hw, seed):
 
 def record_shapes(pred=None):
     """Forward pre-hooks that count each (GroupNorm | attention) input shape
-    and dtype: on ``pred``'s modules, or on every module (one global hook)
-    without ``pred``."""
-    from diffusion_model_project_tpu_torch.models.layers import GroupNorm, MultiheadSelfAttention
+    and dtype where the call goes to the kernel's wrapper (not the calls that
+    train_trace() routes to the plain version under autograd): on ``pred``'s
+    modules, or on every module (one global hook) without ``pred``."""
+    from diffusion_model_project_tpu_torch.models.layers import (GroupNorm, MultiheadSelfAttention,
+                                                                 routes_plain)
 
     seen = {}
 
     def hook(mod, args):
         x = args[0]
+        if isinstance(mod, (GroupNorm, MultiheadSelfAttention)) and routes_plain(mod, x):
+            return
         if isinstance(mod, GroupNorm):
             key = ("groupnorm_act", tuple(x.shape), mod.num_groups, mod.act, str(x.dtype))
         elif isinstance(mod, MultiheadSelfAttention):
@@ -1158,6 +1179,428 @@ def phase_evaluation(smi: str, run_dir: str, vae_dir: str, data_dir: str, writte
     return res
 
 
+# the training phase: the published UNet on phase 8's dataset and VAE dir
+TRAIN_B, TRAIN_EPOCHS, OVERFIT_STEPS = 2, 2, 30
+TRAIN_PHYSICS = ["--lambda-div", "0.1", "--lambda-flow", "0.1", "--lambda-smooth", "0.01",
+                 "--lambda-laplacian", "0.01", "--lambda-velocity", "0.1",
+                 "--physics-loss-freq", "2"]
+TRAIN_TOL = 1e-3  # resume: epoch 1's losses, relative; card vs CPU: UNet gradients
+_ZERO = {"groupnorm_act": 0, "fused_attention": 0, "conv3x3": 0}
+TRAIN_DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
+
+
+def _sync() -> None:
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_argv(data_dir: str, vae_dir: str, save_dir: str, *extra) -> list:
+    """The port's train CLI at the published UNet (PUBLISHED_UNET_KWARGS), B=2."""
+    from diffusion_model_project_tpu_torch.utils.config import PUBLISHED_UNET_KWARGS as kw
+
+    return ["--root-dir", data_dir, "--save-dir", save_dir, "--vae-path", vae_dir,
+            "--in-channels", str(kw["in_channels"]), "--out-channels", str(kw["out_channels"]),
+            "--features", *map(str, kw["features"]), "--attention", kw["attention"],
+            "--kernel-size", str(kw["kernel_size"]), "--padding-mode", kw["padding_mode"],
+            "--num-slices", str(S), "--num-timesteps", "1000", "--batch-size", str(TRAIN_B),
+            "--shuffle", "true", "--cost-function", EVAL_COST, "--device", TRAIN_DEVICE,
+            *extra]
+
+
+class TrainRecorder:
+    """Wraps every step the trainer builds (``training/helper.py``'s train and
+    validation steps, ``train_diffusion.py``'s test step): each call's host
+    time (synchronized before and after), its launches and its values."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        from diffusion_model_project_tpu_torch.training import helper, train_diffusion
+
+        self._saved = [(helper, "make_diffusion_train_step"),
+                       (helper, "make_diffusion_eval_step"),
+                       (train_diffusion, "make_diffusion_eval_step")]
+        self._orig = [getattr(m, n) for m, n in self._saved]
+        for (mod, name), orig, kind in zip(self._saved, self._orig, ("train", "val", "test")):
+            setattr(mod, name, self._wrap(orig, kind))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), orig in zip(self._saved, self._orig):
+            setattr(mod, name, orig)
+
+    def _wrap(self, factory, kind):
+        def make(*args, **kwargs):
+            if kind == "train":
+                physics = kwargs.get("physics")
+                heavy = ((physics is not None and physics.is_active())
+                         or kwargs.get("lambda_velocity", 0) > 0
+                         or kwargs.get("velocity_loss_primary", False))
+                label = "train_heavy" if heavy else "train_plain"
+            else:
+                label = kind
+            step = factory(*args, **kwargs)
+
+            def run(*a, **kw):
+                _sync()
+                before = _launches()
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                _sync()
+                secs = time.perf_counter() - t0
+                after = _launches()
+                self.steps.append({"kind": label, "seconds": secs,
+                                   "launches": {k: after[k] - before[k] for k in after},
+                                   "values": {k: float(v) for k, v in out.items()}})
+                return out
+            return run
+        return make
+
+    def of(self, *kinds) -> list:
+        return [s for s in self.steps if s["kind"] in kinds]
+
+
+def _newest_run(save_dir: str) -> str:
+    runs = sorted(os.listdir(save_dir))
+    if len(runs) != 1:
+        raise RuntimeError(f"{save_dir} holds {runs}, one run dir expected")
+    return os.path.join(save_dir, runs[0])
+
+
+def _read_log(run_dir: str) -> dict:
+    with open(os.path.join(run_dir, "log.json")) as f:
+        return json.load(f)
+
+
+def train_run(label: str, argv: list, calls: dict, smi: str, run_dir=None) -> dict:
+    """One call of the port's train CLI with the launch counters set to 0
+    before it and read after it, every step timed and its launches checked
+    against the module-derived counts: in each train step the frozen encodes'
+    (E3D + E2D GroupNorms; the UNet and D3D run plain under autograd); in
+    each validation and test step E3D + E2D + UNet GroupNorms, with D3D's
+    where the step reconstructs the velocity, and the UNet's attentions."""
+    from diffusion_model_project_tpu_torch import train as train_cli
+
+    cuda = TRAIN_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with TrainRecorder() as rec:
+        train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    total = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    run_dir = run_dir or _newest_run(argv[argv.index("--save-dir") + 1])
+    log_json = _read_log(run_dir)
+    for st in rec.steps:
+        if st["kind"].startswith("train"):
+            want = {**_ZERO, "groupnorm_act": calls["encoder_3d"] + calls["encoder_2d"]}
+        else:
+            physics = "div_mean" in st["values"]
+            want = {"groupnorm_act": calls["encoder_3d"] + calls["encoder_2d"] + calls["unet"]
+                    + (calls["decoder_3d"] if physics else 0),
+                    "fused_attention": calls["attention"], "conv3x3": 0}
+        if st["launches"] != want:
+            raise RuntimeError(f"[training] {label}: a {st['kind']} step launched "
+                               f"{st['launches']}, expected {want}")
+
+    def launched(train):
+        return {k: sum(st["launches"][k] for st in rec.steps
+                       if st["kind"].startswith("train") == train) for k in _ZERO}
+
+    train_launches, eval_launches = launched(True), launched(False)
+    if total != {k: train_launches[k] + eval_launches[k] for k in _ZERO}:
+        raise RuntimeError(f"[training] {label}: the run launched {total}, its train steps "
+                           f"{train_launches} and its eval steps {eval_launches}")
+    losses = log_json["train_loss"] + log_json["val_loss"] + [log_json.get("test_loss", 0.0)]
+    values = [v for st in rec.steps for v in st["values"].values()]
+    if not all(math.isfinite(x) for x in losses + values):
+        raise RuntimeError(f"[training] {label}: a loss or component is not finite: {log_json}")
+    files = sorted(os.listdir(run_dir))
+
+    def secs(*kinds):
+        return [round(st["seconds"], 4) for st in rec.of(*kinds)]
+
+    train_s = secs("train_plain", "train_heavy")
+    out = {"run_dir": os.path.basename(run_dir), "wall_s": wall, "peak_gib": peak,
+           "launches": total, "train_step_launches": train_launches,
+           "eval_launches": eval_launches, "epoch_s": log_json["time"],
+           "train_loss": log_json["train_loss"], "val_loss": log_json["val_loss"],
+           "test_loss": log_json.get("test_loss"), "files": files,
+           "train_plain_s": secs("train_plain"), "train_heavy_s": secs("train_heavy"),
+           "val_s": secs("val"), "test_s": secs("test"),
+           "steady_train_s": (sum(train_s[1:]) / len(train_s[1:])) if len(train_s) > 1
+           else None,
+           "heavy_values": [st["values"] for st in rec.of("train_heavy")]}
+    log(f"[training] {label}: {len(train_s)} train steps, s a step "
+        + ", ".join(f"{x:.3f}" for x in train_s)
+        + (f" (plain {', '.join(f'{x:.3f}' for x in out['train_plain_s'])}; heavy "
+           f"{', '.join(f'{x:.3f}' for x in out['train_heavy_s'])})" if out["train_heavy_s"]
+           else "")
+        + f"; validation batch s {', '.join(f'{x:.3f}' for x in out['val_s'])}; test batch s "
+        f"{', '.join(f'{x:.3f}' for x in out['test_s'])}; epoch s "
+        + ", ".join(f"{x:.2f}" for x in log_json["time"])
+        + f"; the CLI call {wall:.1f} s; peak memory {peak:.2f} GiB | {smi}")
+    log(f"[training] {label}: launches over the train steps {train_launches} (the frozen "
+        f"E3D + E2D encodes; module-derived), over the validation and test passes "
+        f"{eval_launches} (module-derived); "
+        f"train loss {log_json['train_loss']}, val loss {log_json['val_loss']}, test loss "
+        f"{log_json.get('test_loss')}; run dir files {files}")
+    return out
+
+
+class _GradCapture:
+    """An optimizer that leaves the parameters alone: a step's gradients stay in ``.grad``."""
+
+    def __init__(self, module):
+        self.params = list(module.parameters())
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        pass
+
+
+def train_card_vs_cpu() -> dict:
+    """One train step's UNet gradients on the card and on the CPU, published
+    widths at 128^2 x 3, B=1, float32 with TF32 off, from the same weights,
+    batch, noise and t: plain, and with the physics and velocity losses."""
+    from diffusion_model_project_tpu_torch.losses.physics import PhysicsLoss
+    from diffusion_model_project_tpu_torch.training.steps import make_diffusion_train_step
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        hw, s = 128, 3
+        cpu = published_predictor(torch.device("cpu"), torch.float32, seed=13)
+        gpu = copy.deepcopy(cpu).to(TRAIN_DEVICE)
+        img, vel, noise = make_inputs(1, s, hw, seed=14)
+        gen = torch.Generator().manual_seed(15)
+        batch = {"img": img, "U_2d": vel, "U": torch.randn((1, s, 3, hw, hw), generator=gen) * 1e-2}
+        t = torch.randint(0, 1000, (s,), generator=gen)
+        out = {}
+        for name, kw in (("plain", {}),
+                         ("physics", dict(physics=PhysicsLoss(0.1, 0.1, 0.01, 0.01),
+                                          lambda_velocity=0.1))):
+            grads, cpu_s = {}, None
+            for pred, d in ((cpu, "cpu"), (gpu, TRAIN_DEVICE)):
+                pred.model.requires_grad_(True)
+                step = make_diffusion_train_step(_GradCapture(pred.model), cost_name=EVAL_COST,
+                                                 **kw)
+                t0 = time.perf_counter()
+                step(pred, {k: v.to(d) for k, v in batch.items()}, noise=noise.to(d), t=t.to(d))
+                if d == "cpu":
+                    cpu_s = time.perf_counter() - t0
+                grads["cpu" if pred is cpu else "card"] = torch.cat(
+                    [p.grad.reshape(-1).cpu() for p in pred.model.parameters()])
+                pred.model.requires_grad_(False)
+                pred.model.zero_grad(set_to_none=True)
+            rel = ((grads["card"] - grads["cpu"]).abs().max() / grads["cpu"].abs().max()).item()
+            log(f"[training] card vs CPU, one train step's UNet gradients ({name}), published "
+                f"widths, {s}x{hw}^2, B=1, float32, TF32 off: max|g_card - g_cpu| / max|g_cpu| "
+                f"= {rel:.3e} (tol {TRAIN_TOL:.0e}); cpu {cpu_s:.1f} s")
+            if not (torch.isfinite(grads["card"]).all() and rel <= TRAIN_TOL):
+                raise RuntimeError(f"train step gradients ({name}): card and CPU disagree, {rel:.3e}")
+            out[name] = {"rel_err": rel, "tol": TRAIN_TOL, "cpu_s": cpu_s}
+        return out
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def train_overfit_and_profile(log_a: dict, data_dir: str, smi: str) -> dict:
+    """(e) 30 steps (lr 1e-4) on one fixed batch with fixed noise and t: the
+    loss must end below where it started; then one more plain step under
+    torch.profiler, its device time by kernel (where a train step's time goes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_project_tpu_torch.data import get_loader
+    from diffusion_model_project_tpu_torch.training.helper import _batch_dict, set_model
+    from diffusion_model_project_tpu_torch.training.steps import make_diffusion_train_step
+    from diffusion_model_project_tpu_torch.training.train_diffusion import make_optimizer
+
+    td = log_a["params"]["training"]
+    pred = set_model(td["predictor_type"], td["predictor"],
+                     os.path.join(data_dir, "statistics.json"), seed=0, device=TRAIN_DEVICE)
+    pred.model.requires_grad_(True)
+    opt = make_optimizer(pred.model, 1e-4)
+    step = make_diffusion_train_step(opt, cost_name=EVAL_COST)
+    train_loader = get_loader(data_dir, batch_size=TRAIN_B, use_3d=True)[0][0]
+    batch = _batch_dict(next(iter(train_loader)), TRAIN_DEVICE)
+    gen = torch.Generator().manual_seed(16)
+    noise = torch.randn((TRAIN_B * S, 8, HW // 4, HW // 4), generator=gen).to(TRAIN_DEVICE)
+    t = torch.randint(0, 1000, (TRAIN_B * S,), generator=gen).to(TRAIN_DEVICE)
+    _sync()
+    t0 = time.perf_counter()
+    losses = torch.stack([step(pred, batch, noise=noise, t=t)["loss"]
+                          for _ in range(OVERFIT_STEPS)]).tolist()
+    overfit_s = (time.perf_counter() - t0) / OVERFIT_STEPS
+    log(f"[training] overfit: {OVERFIT_STEPS} steps on one batch (fixed noise and t, lr 1e-4): "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f} (min {min(losses):.6f}); "
+        f"{overfit_s:.4f} s a step back to back | {smi}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise RuntimeError(f"overfit: the loss did not fall: {losses}")
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(pred, batch, noise=noise, t=t)
+        _sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = kernels[e.name]
+            k[0] += (e.time_range.end - e.time_range.start) / 1e3
+            k[1] += 1
+    device_ms = sum(v[0] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
+    log(f"[training] one plain train step under torch.profiler: {wall_ms:.1f} ms wall, "
+        f"{device_ms:.1f} ms on the device ({len(kernels)} kernel names, "
+        f"{sum(v[1] for v in kernels.values())} launches) | {smi}")
+    for name, (ms, n) in top:
+        log(f"[training]   {ms:9.3f} ms {n:5d}x  {name[:110]}")
+    del pred, opt
+    return {"losses": losses, "overfit_s_per_step": overfit_s,
+            "profile": {"wall_ms": wall_ms, "device_ms": device_ms,
+                        "kernels": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in
+                                    sorted(kernels.items(), key=lambda kv: -kv[1][0])]}}
+
+
+def phase_training(smi: str, data_dir: str, vae_dir: str, written_pred, root: str) -> dict:
+    """The port's diffusion training (``python -m diffusion_model_project_tpu_torch.train``)
+    at the published UNet on phase 8's dataset (12 samples of 256^2 x 11:
+    8 train, 1 validation, 3 test) and VAE dir: (a) 2 epochs, B=2, float32;
+    (b) the physics and velocity losses, 1 epoch; (c) 1 epoch, then --resume
+    to 2, epoch 1's losses against (a)'s; (d) the inference CLI, DDIM-50, on
+    (a)'s run dir; (e) overfitting one batch, and one train step profiled;
+    (f) one train step's UNet gradients on the card against the CPU; (g) 1
+    epoch in bfloat16. Then the kernels' inputs in the validation and test
+    passes, recorded by a hook in runs of their own."""
+    from diffusion_model_project_tpu_torch import inference
+    from diffusion_model_project_tpu_torch.data import get_loader
+    from diffusion_model_project_tpu_torch.training.helper import _batch_dict
+    from diffusion_model_project_tpu_torch.training.steps import (make_diffusion_eval_step,
+                                                                  make_diffusion_train_step)
+
+    calls = module_calls(written_pred)
+    base = os.path.join(root, "train")
+    res = {}
+    t_phase = time.perf_counter()
+
+    # (a) train mode, 2 epochs
+    run_a = train_run("(a) train, 2 epochs, B=2, float32",
+                      train_argv(data_dir, vae_dir, os.path.join(base, "a"),
+                                 "--num-epochs", str(TRAIN_EPOCHS)), calls, smi)
+    want = ["best_model.msgpack", "log.json", "model.msgpack", "train_state.msgpack"]
+    if run_a["files"] != want:
+        raise RuntimeError(f"(a): the run dir holds {run_a['files']}, expected {want}")
+    res["a"] = run_a
+    dir_a = os.path.join(base, "a", run_a["run_dir"])
+    log_a = _read_log(dir_a)
+
+    # (b) physics
+    run_b = train_run("(b) physics and velocity losses, 1 epoch",
+                      train_argv(data_dir, vae_dir, os.path.join(base, "b"),
+                                 "--num-epochs", "1", *TRAIN_PHYSICS), calls, smi)
+    comps = {"divergence", "flow_rate", "smoothness", "laplacian", "velocity_loss",
+             "loss_u", "loss_v", "loss_w"}
+    if not (run_b["train_heavy_s"] and run_b["train_plain_s"]
+            and all(comps <= set(v) for v in run_b["heavy_values"])):
+        raise RuntimeError(f"(b): heavy {run_b['train_heavy_s']}, plain "
+                           f"{run_b['train_plain_s']}, components {run_b['heavy_values']}")
+    log(f"[training] (b) heavy step components: " + "; ".join(
+        ", ".join(f"{k} {v[k]:.4e}" for k in sorted(comps)) for v in run_b["heavy_values"]))
+    res["b"] = run_b
+    shutil.rmtree(os.path.join(base, "b"))
+
+    # (c) resume
+    save_c = os.path.join(base, "c")
+    argv_c = train_argv(data_dir, vae_dir, save_c, "--num-epochs", "1")
+    first = train_run("(c) 1 epoch", argv_c, calls, smi)
+    dir_c = os.path.join(save_c, first["run_dir"])
+    resumed = train_run("(c) --resume to 2 epochs",
+                        train_argv(data_dir, vae_dir, save_c, "--num-epochs",
+                                   str(TRAIN_EPOCHS), "--resume", dir_c), calls, smi,
+                        run_dir=dir_c)
+    log_c = _read_log(dir_c)
+    diffs = {k: abs(log_c[k][1] - log_a[k][1]) / abs(log_a[k][1])
+             for k in ("train_loss", "val_loss")}
+    log(f"[training] (c) resume: epoch 1 train loss {log_c['train_loss'][1]!r} against (a)'s "
+        f"{log_a['train_loss'][1]!r}, val loss {log_c['val_loss'][1]!r} against "
+        f"{log_a['val_loss'][1]!r}: relative differences {diffs['train_loss']:.3e} / "
+        f"{diffs['val_loss']:.3e} (tol {TRAIN_TOL:.0e}); epoch 0 {log_c['train_loss'][0]!r} / "
+        f"{log_a['train_loss'][0]!r}")
+    if not (log_c["epoch"] == [0, 1] and max(diffs.values()) <= TRAIN_TOL):
+        raise RuntimeError(f"(c): the resumed run differs from (a): {diffs}, {log_c['epoch']}")
+    res["c"] = {"first": first, "resumed": resumed, "rel_diff_epoch1": diffs}
+    shutil.rmtree(save_c)
+
+    # (d) the inference CLI on (a)'s run dir
+    _zero_launches()
+    cli = inference.run(["--model-dir", dir_a, "--sampler", "ddim", "--steps", str(STEPS),
+                         "--device", TRAIN_DEVICE])
+    launched = _launches()
+    gn, attn = expected_calls(cli.predictor, STEPS)
+    ok = (cli.prediction.shape == (1, S, 3, HW, HW)
+          and bool(torch.isfinite(torch.from_numpy(cli.prediction)).all()))
+    log(f"[training] (d) inference CLI, DDIM-{STEPS}, on (a)'s run dir: output "
+        f"{cli.prediction.shape} finite: {ok}; request {cli.seconds * 1e3:.1f} ms; launches "
+        f"{launched} (expected {gn} / {attn} / 0)")
+    if not ok or launched != {"groupnorm_act": gn, "fused_attention": attn, "conv3x3": 0}:
+        raise RuntimeError(f"(d): output ok {ok}, launches {launched}")
+    res["d"] = {"request_ms": cli.seconds * 1e3, "launches": launched}
+    del cli
+
+    # (e) overfit one batch; one train step profiled
+    res["e"] = train_overfit_and_profile(log_a, data_dir, smi)
+
+    # (f) card vs CPU
+    res["f"] = train_card_vs_cpu()
+
+    # (g) bf16
+    run_g = train_run("(g) bfloat16, 1 epoch",
+                      train_argv(data_dir, vae_dir, os.path.join(base, "g"), "--num-epochs",
+                                 "1", "--compute-dtype", "bfloat16"), calls, smi)
+    res["g"] = run_g
+    shutil.rmtree(os.path.join(base, "g"))
+
+    # the kernels' inputs in the validation and test passes (batches of 2 and
+    # of 1, float32 and bfloat16, with and without physics metrics) and in a
+    # train step's frozen encodes (a batch of 2, each dtype)
+    from diffusion_model_project_tpu_torch.utils.checkpoint import predictor_from_directory
+
+    pred, _ = predictor_from_directory(dir_a, device=TRAIN_DEVICE)
+    loaders = get_loader(data_dir, batch_size=TRAIN_B, use_3d=True)[0]
+    batches = [_batch_dict(d, TRAIN_DEVICE) for d in loaders[2]]
+    train_step = make_diffusion_train_step(_GradCapture(pred.model), cost_name=EVAL_COST)
+    seen, handles = record_shapes()
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            pred.compute_dtype = dtype
+            for physics in (False, True):
+                step = make_diffusion_eval_step(cost_name=EVAL_COST, with_physics_metrics=physics)
+                for b in batches:
+                    step(pred, b, torch.Generator(device=TRAIN_DEVICE).manual_seed(0))
+            pred.model.requires_grad_(True)
+            train_step(pred, batches[0], torch.Generator(device=TRAIN_DEVICE).manual_seed(0))
+            pred.model.requires_grad_(False)
+            pred.model.zero_grad(set_to_none=True)
+    finally:
+        for h in handles:
+            h.remove()
+    del pred
+    shutil.rmtree(base)
+    res["shapes"] = seen
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[training] the phase took {res['seconds']:.1f} s | {smi}")
+    return res
+
+
 def _totals(rs: list) -> dict:
     """A kernel's numbers a request from its rows: each shape's time times
     its calls a request, summed; the largest error."""
@@ -1172,7 +1615,7 @@ def _totals(rs: list) -> dict:
 
 
 def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_rows: list,
-              eval_paths: list) -> list:
+              eval_paths: list, train_rows: list, train_paths: list) -> list:
     """One entry per kernel; times are per request of its path: one
     predict_ddim for K1 and K2, one call at each probe stage (the planner's
     tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
@@ -1180,7 +1623,9 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
     K2 at the CLI's own shapes and dtype, a DDIM-50 request of the CLI;
     ``evaluation`` at the evaluation paths' (shape, dtype) pairs that no
     earlier phase held, calls counted over phase "evaluation"'s hooked runs,
-    with the launches of each evaluation path."""
+    with the launches of each evaluation path; ``training`` at the training
+    paths' pairs that no earlier phase held (the validation and test passes,
+    and the train steps' frozen encodes), with the training paths' launches."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
                           "diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py:47"),
@@ -1207,6 +1652,12 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
                                    "launches": {p: by_path[p][name] for p in eval_paths},
                                    "rel_err": max(r["rel_err"] for r in ev),
                                    "tol": max(r["tol"] for r in ev), **_totals(ev)}
+        tr = [r for r in train_rows if r["kernel"] == name]
+        entry["training"] = {"launches": {p: by_path[p][name] for p in train_paths}}
+        if tr:
+            entry["training"].update({"dtypes": sorted({r["dtype"] for r in tr}),
+                                      "rel_err": max(r["rel_err"] for r in tr),
+                                      "tol": max(r["tol"] for r in tr), **_totals(tr)})
         out.append(entry)
     return out
 
@@ -1247,22 +1698,39 @@ def main() -> int:
         tallies.append(tally("cli kernels", mark))
         ev = phase_evaluation(device["nvidia_smi"], run_dir, vae_dir, data_dir, written_pred,
                               set(sl["shapes"]) | set(ep["shapes"]))
+        tr = phase_training(device["nvidia_smi"], data_dir, vae_dir, written_pred, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     mark = dict(PROFILER)
     eval_rows, eval_k1_parts = phase_kernels(
         ev["new_shapes"], {"groupnorm_act": 1, "fused_attention": 1}, tag="eval kernels")
     tallies.append(tally("eval kernels", mark))
+    held = set(sl["shapes"]) | set(ep["shapes"]) | set(ev["shapes"])
+    tr["new_shapes"] = {k: v for k, v in tr["shapes"].items() if k not in held}
+    log(f"[training] the kernels' inputs in the validation and test passes: "
+        f"{len(tr['shapes'])} (shape, dtype) pairs, {len(tr['new_shapes'])} not held by an "
+        f"earlier phase: " + ", ".join(f"{k[0]} {k[1]} {k[-1]}"
+                                       for k in sorted(tr["new_shapes"], key=str)))
+    train_rows, train_k1_parts = [], {}
+    if tr["new_shapes"]:
+        mark = dict(PROFILER)
+        train_rows, train_k1_parts = phase_kernels(
+            tr["new_shapes"], {k[0]: 1 for k in tr["new_shapes"]}, tag="train kernels")
+        tallies.append(tally("train kernels", mark))
     cvc = phase_card_vs_cpu()
     eval_paths = {"evaluate": ev["evaluate"]["launches"],
                   **{f"eval_{k}": v["launches"] for k, v in ev["end2end"].items()},
                   **{f"inference_vae_{k}": v["launches"] for k, v in ev["inference_vae"].items()}}
+    train_paths = {"train_steps": tr["a"]["train_step_launches"],
+                   "train_eval_passes": tr["a"]["eval_launches"],
+                   "train_physics_eval_passes": tr["b"]["eval_launches"]}
     by_path = {"ddim_slice": {**sl["launches"], "conv3x3": 0},
                "conv_probe": {"groupnorm_act": 0, "fused_attention": 0,
                               "conv3x3": conv_launches},
-               **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}, **eval_paths}
+               **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}, **eval_paths,
+               **train_paths}
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches}, by_path,
-                        cli_rows, eval_rows, sorted(eval_paths))
+                        cli_rows, eval_rows, sorted(eval_paths), train_rows, sorted(train_paths))
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
@@ -1275,6 +1743,10 @@ def main() -> int:
                                       for k, v in ev[key].items()]
                                 for key in ("shapes", "new_shapes")}},
         "eval_kernel_rows": eval_rows, "eval_k1_request_ms": eval_k1_parts,
+        "training": {**tr, **{key: [{"key": list(map(str, k)), "calls": v}
+                                    for k, v in tr[key].items()]
+                              for key in ("shapes", "new_shapes")}},
+        "train_kernel_rows": train_rows, "train_k1_request_ms": train_k1_parts,
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

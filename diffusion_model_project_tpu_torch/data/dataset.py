@@ -461,6 +461,26 @@ def _subset(dataset: MicroFlowDataset, indices: Sequence[int], augment: bool,
     )
 
 
+def kfold_indices(n: int, k: int, seed: int):
+    """(train, test) index arrays of each of ``k`` folds, as scikit-learn's
+    ``KFold(k, shuffle=True, random_state=seed).split`` gives them (the JAX
+    package's, and the reference's, folds), without scikit-learn: a
+    ``RandomState(seed)`` shuffle of 0..n-1 cut into k consecutive folds,
+    the first n % k one longer; both index arrays sorted."""
+    if not 2 <= k <= n:
+        raise ValueError(f"k_folds={k} needs 2 <= k_folds <= {n} samples")
+    order = np.arange(n)
+    np.random.RandomState(seed).shuffle(order)
+    sizes = np.full(k, n // k, dtype=int)
+    sizes[: n % k] += 1
+    start = 0
+    for size in sizes:
+        test = np.zeros(n, dtype=bool)
+        test[order[start:start + size]] = True
+        start += size
+        yield np.flatnonzero(~test), np.flatnonzero(test)
+
+
 def get_loader(
     root_dir: str,
     augment: bool = False,
@@ -507,11 +527,8 @@ def get_loader(
             NumpyLoader(test_set, batch_size, shuffle=False),
         )]
 
-    from sklearn.model_selection import KFold
-
-    kf = KFold(n_splits=k_folds, shuffle=True, random_state=seed)
     out = []
-    for train_idx, test_idx in kf.split(np.arange(len(dataset))):
+    for train_idx, test_idx in kfold_indices(len(dataset), k_folds, seed):
         train_set = _subset(dataset, train_idx, augment=augment, save_stats=True)
         val_set = _subset(dataset, test_idx, augment=False, save_stats=False)
         train_loader = NumpyLoader(train_set, batch_size, shuffle=shuffle, seed=seed)

@@ -4,10 +4,13 @@ Counterpart of the JAX ``models/layers.py``. Parameters are kept in float32
 and cast to the input's dtype at each call, as the JAX layers do, so the
 compute dtype touches only conv and matmul compute. GroupNorm(+act) and
 self-attention go through the K1/K2 wrappers, which launch the hand-written
-kernels on CUDA tensors and take the plain versions on CPU tensors.
+kernels on CUDA tensors and take the plain versions on CPU tensors. Inside
+``train_trace()`` (the training steps) a call that needs a gradient takes the
+plain version under autograd instead, GroupNorm with two-pass statistics.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -15,9 +18,48 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.basic import activation_function
+from ..ops.attention import multihead_attention
+from ..ops.basic import activation_function, group_norm
 from ..ops.cuda.attention import fused_attention
 from ..ops.cuda.groupnorm_act import groupnorm_act
+
+# Set by train_trace(). A process-wide flag, not a thread-local one: the
+# autograd engine runs backward (and torch.utils.checkpoint's recomputation
+# of the VAE's residual blocks) on threads of its own, which must route the
+# same way as the forward did.
+_TRAIN_TRACE = False
+
+
+@contextlib.contextmanager
+def train_trace():
+    """The switches of a training step (the JAX ``train_trace()``, without
+    its TPU-only conv3d variant): a GroupNorm or self-attention call that
+    needs a gradient takes the plain version under autograd, GroupNorm with
+    robust two-pass statistics (one-pass E[x^2]-mu^2 loses the variance once
+    training drifts activations to |mean|/std > ~3e3); K1 and K2, which have
+    no backward, are not launched for it. Calls that need none (the frozen
+    encodes of the target and the 2D input) still launch them: K1's
+    statistics are Chan's merge, robust as well. Enter it around the forward
+    AND ``loss.backward()``. Outside it nothing changes: the wrappers still
+    raise under grad on CUDA."""
+    global _TRAIN_TRACE
+    prev = _TRAIN_TRACE
+    _TRAIN_TRACE = True
+    try:
+        yield
+    finally:
+        _TRAIN_TRACE = prev
+
+
+def in_train_trace() -> bool:
+    return _TRAIN_TRACE
+
+
+def routes_plain(module: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``module``'s call on ``x`` takes the plain version under
+    autograd: inside ``train_trace()``, where x or a parameter needs a gradient."""
+    return _TRAIN_TRACE and torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -91,6 +133,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if routes_plain(self, x):
+            return activation_function(self.act)(
+                group_norm(x, self.weight, self.bias, self.num_groups, two_pass=True))
         return groupnorm_act(x, self.weight, self.bias, self.num_groups, self.act)
 
 
@@ -108,7 +153,8 @@ class MultiheadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         # transposed views give the (E, 3E) / (E, E) layouts without a copy
-        return fused_attention(
+        attention = multihead_attention if routes_plain(self, x) else fused_attention
+        return attention(
             x, self.in_proj_weight.t().to(dt), self.in_proj_bias.to(dt),
             self.out_proj.weight.t().to(dt), self.out_proj.bias.to(dt), self.num_heads)
 

@@ -138,8 +138,12 @@ class UNet(nn.Module):
         time_embedding_dim: Optional[int] = None,
     ):
         super().__init__()
-        if dropout:
-            raise NotImplementedError("dropout > 0 is a training option; not ported yet")
+        # ``dropout`` is accepted and is the identity, as in the JAX package:
+        # its UNet applies dropout only when called with train=True, which the
+        # predictor never passes (JAX models/unet.py:158, diffusion/
+        # predictor.py:294-296), so every run it trains or loads, '-dr-0.1-'
+        # included, computes without it
+        self.dropout = dropout
         features = list(features)
         heads = eval_expression(attention, len(features))
         self.time_embedding_dim = time_embedding_dim

@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.basic import get_padding
 from ..ops.resize import upsample_nearest_hw
@@ -120,10 +121,19 @@ def _check_condition(conditional: bool, condition, what: str) -> None:
 
 
 class _Stages(nn.Module):
-    """Residual blocks run with or without the condition."""
+    """Residual blocks run with or without the condition. ``remat``: under
+    autograd each residual block goes through ``torch.utils.checkpoint``, so
+    its activations are recomputed in backward instead of stored (the JAX
+    ``nn.remat``; differentiating through the 256^2 x 11 decoder does not
+    fit otherwise). Parameters and results are unchanged."""
+
+    remat = False
 
     def _res(self, block, x, condition):
-        return block(x) if condition is None else block(x, condition)
+        args = (x,) if condition is None else (x, condition)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def _film(self, name, x, condition):
         return x if condition is None else getattr(self, name)(x, condition)
@@ -274,6 +284,9 @@ class DualBranchVAE(nn.Module):
         dec = lambda: Decoder(latent_channels, in_channels, kernel_size, features, conditional)  # noqa: E731
         self.encoder_2d, self.decoder_2d = enc(), dec()
         self.encoder_3d, self.decoder_3d = enc(), dec()
+        # the physics losses differentiate through the frozen D3D (the JAX
+        # remat_decoders=True of losses/physics.py); it checkpoints only under grad
+        self.decoder_3d.remat = True
 
     def init_parameters_(self, generator: torch.Generator) -> None:
         init_module_(self, generator)

@@ -1,3 +1,3 @@
-"""The evaluation side of the JAX package's ``training/``: normalization
-parameters and batch selection (``helper.py``) and the validation step
-(``steps.py``). The training loops are not ported yet."""
+"""The diffusion training side of the port (the JAX package's ``training/``):
+the train and validation steps (``steps.py``), the epoch loop and model
+setup (``helper.py``) and the driver (``train_diffusion.py``)."""

@@ -1,4 +1,4 @@
-"""Load run dirs and checkpoints into the port (the read side of the JAX
+"""Load and save run dirs and checkpoints (the port's copy of the JAX
 package's ``utils/checkpoint.py``).
 
 Two on-disk formats load:
@@ -15,7 +15,15 @@ It replays the reference's conventions (Diffusion_model/src/predictor.py:
 encoder / decoder dirs, legacy ``layers.N`` names, ``norm_factors`` from the
 decoder dir's ``vae_log.json``, and scheduler tables rebuilt, never loaded.
 Every load is strict: a missing or unexpected key or a wrong shape raises
-``ValueError``. Saving is training's work and is not here.
+``ValueError``.
+
+The save side writes the JAX package's own formats with the port's
+msgpack encoder: ``model.msgpack`` / ``best_model.msgpack`` /
+``ema_model.msgpack`` (``predictor_state``: the UNet's and the VAE's flax
+params, the normalizers) and ``train_state.msgpack`` (the predictor state,
+the optimizer state in optax's ``to_state_dict`` layout, the epoch and the
+best validation loss), so the JAX package's ``predictor_from_directory`` and
+``load_train_state`` read what the port writes, and the reverse.
 """
 from __future__ import annotations
 
@@ -23,11 +31,13 @@ import json
 import os.path as osp
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from . import flax_msgpack, weights
 from . import torch_import as ti
+from .async_ckpt import atomic_write, device_snapshot
 
 StateDict = Dict[str, torch.Tensor]
 BRANCHES = ("encoder_2d", "encoder_3d", "decoder_2d", "decoder_3d")
@@ -108,10 +118,72 @@ def load_strict(module: nn.Module, sd: StateDict, what: str) -> None:
 # native msgpack format
 # --------------------------------------------------------------------------
 
-def load_predictor_state(predictor, path: str):
-    """Load a native ``model.msgpack``-style predictor state (UNet and VAE
-    flax params, normalizers) into ``predictor`` (in place; returns it)."""
-    state = flax_msgpack.load(path)
+def predictor_state(predictor, frozen_vae: Optional[dict] = None,
+                    unet_state: Optional[StateDict] = None) -> dict:
+    """The serializable predictor tree of a ``model.msgpack``: flax UNet and
+    VAE params (views of the live tensors, see ``weights.unet_to_flax``) and
+    the normalizers' factors. ``frozen_vae``: a host copy of the VAE's flax
+    params (``frozen_vae_params``) spliced in place of the live VAE: the VAE
+    is frozen during diffusion training (reference predictor.py:604-607),
+    so one copy a run serves every checkpoint. ``unet_state``: a UNet state
+    dict to write instead of the model's own (the EMA weights)."""
+    unet_state = predictor.model.state_dict() if unet_state is None else unet_state
+    return {
+        "unet_params": weights.unet_to_flax(unet_state),
+        "vae_params": (frozen_vae if frozen_vae is not None
+                       else weights.dual_vae_to_flax(predictor.vae.state_dict())),
+        "norm_input": predictor.normalizer["input"].scale_factors.detach(),
+        "norm_output": predictor.normalizer["output"].scale_factors.detach(),
+    }
+
+
+def _host(tree):
+    """``tree`` with every (float32) tensor leaf as a C-ordered numpy copy."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu().contiguous().numpy().copy()
+
+
+def frozen_vae_params(predictor) -> dict:
+    """A host copy of the predictor's VAE as flax params, for ``frozen_vae``."""
+    return _host(weights.dual_vae_to_flax(predictor.vae.state_dict()))
+
+
+def _write(path: str, tree, writer) -> None:
+    """Write ``tree`` as flax msgpack to ``path`` atomically, now or through
+    an ``AsyncCheckpointWriter``."""
+    if writer is None:
+        atomic_write(path, flax_msgpack.msgpack_serialize(tree))
+        return
+    # a copy on the device before submit returns: the next optimizer step
+    # updates the parameters, moments and EMA in place
+    writer.submit(path, device_snapshot(tree))
+
+
+def save_predictor(predictor, path: str, writer=None, frozen_vae: Optional[dict] = None,
+                   unet_state: Optional[StateDict] = None) -> None:
+    """Write ``predictor_state`` to ``path`` (flax msgpack), atomically; with
+    an ``AsyncCheckpointWriter`` the host copy, serialization and write run
+    on its thread, from a snapshot taken here."""
+    _write(path, predictor_state(predictor, frozen_vae, unet_state), writer)
+
+
+def save_train_state(path: str, predictor, optimizer, epoch: int, best_loss: float,
+                     writer=None, frozen_vae: Optional[dict] = None) -> None:
+    """The full training state (weights, optimizer, progress) for resume, in
+    the JAX package's ``train_state.msgpack`` layout: ``optimizer`` (a
+    ``training.train_diffusion.make_optimizer`` optimizer) writes its state in
+    optax's ``to_state_dict`` layout."""
+    state = {
+        "predictor": predictor_state(predictor, frozen_vae),
+        "opt_state": optimizer.state_tree(),
+        "epoch": np.asarray(epoch, np.int64),
+        "best_loss": np.asarray(best_loss, np.float64),
+    }
+    _write(path, state, writer)
+
+
+def _load_predictor_tree(predictor, state: dict, path: str):
     load_strict(predictor.model, _from_flax(weights.export_unet, state["unet_params"],
                                             f"unet_params from {path}"),
                 f"unet_params from {path}")
@@ -122,6 +194,35 @@ def load_predictor_state(predictor, path: str):
                 f"vae_params from {path}")
     return predictor.set_normalizer({"input": weights.to_tensor(state["norm_input"]),
                                      "output": weights.to_tensor(state["norm_output"])})
+
+
+def load_predictor_state(predictor, path: str):
+    """Load a native ``model.msgpack``-style predictor state (UNet and VAE
+    flax params, normalizers) into ``predictor`` (in place; returns it)."""
+    return _load_predictor_tree(predictor, flax_msgpack.load(path), path)
+
+
+def load_train_state(path: str, predictor, optimizer):
+    """Restore a ``train_state.msgpack`` (the port's or the JAX package's)
+    into ``predictor`` and ``optimizer``, in place. Returns (predictor,
+    optimizer, next epoch, best loss). The weights load strictly; an
+    optimizer state of another shape (other ``--ema-decay`` or
+    ``--weight-decay`` on/off, other model-shaping flags) raises."""
+    state = flax_msgpack.load(path)
+    _load_predictor_tree(predictor, state["predictor"], path)
+    try:
+        optimizer.load_state_tree(state["opt_state"])
+    except (ValueError, KeyError) as e:
+        raise ValueError(
+            f"Optimizer state in {path} does not match the optimizer built from the "
+            f"current flags — resume with the same optimizer-shaping flags the run was "
+            f"trained with (e.g. --ema-decay on/off must match). Original error: {e}") from e
+    return predictor, optimizer, int(state["epoch"]) + 1, float(state["best_loss"])
+
+
+def peek_train_state_epoch(path: str) -> int:
+    """The epoch a train_state.msgpack resumes FROM (decodes the whole file)."""
+    return int(flax_msgpack.load(path)["epoch"]) + 1
 
 
 # file-name orders, the reference's two conventions: split encoder/decoder

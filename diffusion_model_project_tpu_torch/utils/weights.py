@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's flax param trees into the port.
+"""Carry weights between the JAX package's flax param trees and the port.
 
 The port's own copy of the layout transforms in the JAX package's
 ``utils/torch_export.py`` (``export_unet``, ``export_dual_vae``,
@@ -6,7 +6,10 @@ The port's own copy of the layout transforms in the JAX package's
 params, channels-last; a bfloat16 leaf read from a msgpack file is a torch
 tensor). Output: state dicts whose keys are the reference
 torch predictor's, which the port's modules use, so
-``load_state_dict(..., strict=True)`` accepts them.
+``load_state_dict(..., strict=True)`` accepts them. Their inverses
+(``unet_to_flax``, ``vae_branch_to_flax``, ``dual_vae_to_flax``) give the
+flax trees back from the port's state dicts, as views of its tensors, for
+the checkpoints the port writes (parameters and Adam moments alike).
 
   Conv3d  (kD, kH, kW, I, O) -> (O, I, kD, kH, kW)
   Conv2d  (kH, kW, I, O)     -> (O, I, kH, kW)
@@ -190,3 +193,123 @@ def load_flax_params(predictor, unet_params: dict, vae_params: dict) -> None:
     """Load flax UNet and VAE params into a port predictor (strict)."""
     predictor.model.load_state_dict(to_tensors(export_unet(unet_params)), strict=True)
     predictor.vae.load_state_dict(to_tensors(export_dual_vae(vae_params)), strict=True)
+
+
+# ------------------------------------------------ port state dict -> flax tree
+
+
+def _t(x) -> torch.Tensor:
+    return x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+def _conv_to_flax(sd, key: str, *, transpose2d: bool = False) -> dict:
+    w = _t(sd[f"{key}.weight"])
+    if not transpose2d:
+        if w.ndim == 5:
+            w = w.permute(2, 3, 4, 1, 0)          # (O, I, kD, kH, kW) -> (kD, kH, kW, I, O)
+        elif w.ndim == 4:
+            w = w.permute(2, 3, 1, 0)             # (O, I, kH, kW) -> (kH, kW, I, O)
+        else:
+            raise ValueError(f"Unexpected conv weight rank for {key}: {tuple(w.shape)}")
+    out = {"weight": w}
+    if f"{key}.bias" in sd:
+        out["bias"] = _t(sd[f"{key}.bias"])
+    return out
+
+
+def _norm_to_flax(sd, key: str) -> dict:
+    return {"weight": _t(sd[f"{key}.weight"]), "bias": _t(sd[f"{key}.bias"])}
+
+
+def _linear_to_flax(sd, key: str) -> dict:
+    out = {"weight": _t(sd[f"{key}.weight"]).t()}
+    if f"{key}.bias" in sd:
+        out["bias"] = _t(sd[f"{key}.bias"])
+    return out
+
+
+def _film_to_flax(sd, key: str) -> dict:
+    return {f"mlp_{i}": _linear_to_flax(sd, f"{key}.mlp.{i}") for i in (0, 2, 4)}
+
+
+def _has(sd, prefix: str) -> bool:
+    return any(k.startswith(prefix) for k in sd)
+
+
+def _res_block_to_flax(sd, key: str) -> dict:
+    out = {"norm1": _norm_to_flax(sd, f"{key}.norm1"), "conv1": _conv_to_flax(sd, f"{key}.conv1"),
+           "norm2": _norm_to_flax(sd, f"{key}.norm2"), "conv2": _conv_to_flax(sd, f"{key}.conv2")}
+    if _has(sd, f"{key}.residual_layer."):
+        out["residual_layer"] = _conv_to_flax(sd, f"{key}.residual_layer")
+    for film in ("film1", "film2"):
+        if _has(sd, f"{key}.{film}."):
+            out[film] = _film_to_flax(sd, f"{key}.{film}")
+    return out
+
+
+def vae_branch_to_flax(name: str, sd) -> dict:
+    """Inverse of :func:`export_vae_branch`: one branch's state dict (keys
+    relative to the branch) -> its flax params."""
+    up = name.startswith("decoder")
+    out = {"conv_in": _conv_to_flax(sd, "conv_in")}
+    for stage in ("res1_1", "res1_2", "res2_1", "res2_2", "res3_1", "res3_2"):
+        out[stage] = _res_block_to_flax(sd, stage)
+    for conv in (("conv_up1", "conv_up2") if up else ("down1", "down2")):
+        out[conv] = _conv_to_flax(sd, conv)
+    out["norm_out"] = _norm_to_flax(sd, "norm_out")
+    out["conv_out"] = _conv_to_flax(sd, "conv_out")
+    for film in (("film_in", "film_pre_out") if up else ("film_in", "film_out")):
+        if _has(sd, f"{film}."):
+            out[film] = _film_to_flax(sd, film)
+    return out
+
+
+def dual_vae_to_flax(sd) -> dict:
+    """Inverse of :func:`export_dual_vae`: a DualBranchVAE state dict
+    (branch-prefixed) -> {'encoder_2d': params, ...}."""
+    branches = sorted({k.split(".", 1)[0] for k in sd})
+    return {name: vae_branch_to_flax(name, {k.split(".", 1)[1]: v for k, v in sd.items()
+                                           if k.startswith(name + ".")})
+            for name in branches}
+
+
+def _double_block_to_flax(sd, key: str) -> dict:
+    out = {"block1": {"conv": _conv_to_flax(sd, f"{key}.block1.conv"),
+                      "norm": _norm_to_flax(sd, f"{key}.block1.norm")},
+           "block2": {"conv": _conv_to_flax(sd, f"{key}.block2.conv"),
+                      "norm": _norm_to_flax(sd, f"{key}.block2.norm")}}
+    if _has(sd, f"{key}.time_mlp.1."):
+        out["time_mlp_1"] = _linear_to_flax(sd, f"{key}.time_mlp.1")
+    return out
+
+
+def _self_attention_to_flax(sd, key: str) -> dict:
+    return {"norm": _norm_to_flax(sd, f"{key}.norm"),
+            "mha": {"in_proj_weight": _t(sd[f"{key}.mha.in_proj_weight"]).t(),
+                    "in_proj_bias": _t(sd[f"{key}.mha.in_proj_bias"]),
+                    "out_proj_weight": _t(sd[f"{key}.mha.out_proj.weight"]).t(),
+                    "out_proj_bias": _t(sd[f"{key}.mha.out_proj.bias"])},
+            "proj_out_weight": _t(sd[f"{key}.proj_out.weight"])[..., 0].t(),
+            "proj_out_bias": _t(sd[f"{key}.proj_out.bias"])}
+
+
+def unet_to_flax(sd) -> dict:
+    """Inverse of :func:`export_unet`: a UNet state dict -> flax UNet params."""
+    out = {}
+    if _has(sd, "time_mlp.0."):
+        out["time_mlp_0"] = _linear_to_flax(sd, "time_mlp.0")
+        out["time_mlp_2"] = _linear_to_flax(sd, "time_mlp.2")
+    num_levels = len({k.split(".")[1] for k in sd if k.startswith("encoder.")})
+    for k in range(num_levels):
+        out[f"enc{k}_conv"] = _double_block_to_flax(sd, f"encoder.{k}.0")
+        if _has(sd, f"encoder.{k}.1."):
+            out[f"enc{k}_attn"] = _self_attention_to_flax(sd, f"encoder.{k}.1")
+        out[f"enc{k}_down"] = {"norm": _norm_to_flax(sd, f"encoder.{k}.2.norm")}
+        out[f"dec{k}_up"] = {"conv": _conv_to_flax(sd, f"decoder.{k}.0.conv", transpose2d=True),
+                             "norm": _norm_to_flax(sd, f"decoder.{k}.0.norm")}
+        out[f"dec{k}_conv"] = _double_block_to_flax(sd, f"decoder.{k}.1")
+        if _has(sd, f"decoder.{k}.2."):
+            out[f"dec{k}_attn"] = _self_attention_to_flax(sd, f"decoder.{k}.2")
+    out["bottleneck"] = _double_block_to_flax(sd, "bottleneck")
+    out["final_conv"] = _conv_to_flax(sd, "final_conv")
+    return out

@@ -384,3 +384,140 @@ def test_ddpm_draws_from_a_card_generator(gen):
             for seed in (7, 7, 8)]
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
     assert torch.isfinite(runs[0]).all()
+
+
+# ------------------------------------------------------------------ training
+
+
+def _tiny_batch(b=2, s=3, hw=32, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    img = (torch.rand((b, s, 1, hw, hw), generator=g) > 0.3).float()
+    v2d = torch.randn((b, s, 3, hw, hw), generator=g) * 1e-2
+    v3d = torch.randn((b, s, 3, hw, hw), generator=g) * 1e-2
+    noise = torch.randn((b * s, 4, hw // 4, hw // 4), generator=g)
+    t = torch.randint(0, 1000, (b * s,), generator=g)
+    return {"img": img, "U_2d": v2d, "U": v3d}, noise, t
+
+
+class _GradCapture:
+    def __init__(self, module):
+        self.params = list(module.parameters())
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        pass
+
+
+@pytest.mark.cuda
+def test_train_trace_launches_no_kernel_and_eval_launches_both(gen):
+    """The train step (physics on) runs the plain versions under autograd
+    inside train_trace(): K2 launches 0 times and K1 only for the frozen
+    encodes (the E3D and E2D GroupNorms, which need no gradient); the eval
+    step outside it launches them once a GroupNorm / attention call."""
+    from diffusion_model_project_tpu_torch.losses.physics import PhysicsLoss
+    from diffusion_model_project_tpu_torch.models.layers import GroupNorm, MultiheadSelfAttention
+    from diffusion_model_project_tpu_torch.training import steps
+
+    pred = _tiny_predictor().to("cuda")
+    batch, noise, t = _tiny_batch()
+    batch = {k: v.cuda() for k, v in batch.items()}
+    pred.model.requires_grad_(True)
+    step = steps.make_diffusion_train_step(_GradCapture(pred.model), physics=PhysicsLoss(0.1),
+                                           lambda_velocity=0.1)
+    encodes = sum(isinstance(m, GroupNorm) for part in (pred.vae.encoder_3d, pred.vae.encoder_2d)
+                  for m in part.modules())
+    before = (k1.LAUNCHES, k2.LAUNCHES)
+    aux = step(pred, batch, noise=noise.cuda(), t=t.cuda())
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]) == (encodes, 0)
+    before = (k1.LAUNCHES, k2.LAUNCHES)
+    assert all(torch.isfinite(v) for v in aux.values())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in pred.model.parameters())
+    pred.model.requires_grad_(False)
+    gn = sum(isinstance(m, GroupNorm) for part in (pred.vae.encoder_3d, pred.vae.encoder_2d,
+                                                  pred.model, pred.vae.decoder_3d)
+             for m in part.modules())
+    attn = sum(isinstance(m, MultiheadSelfAttention) for m in pred.model.modules())
+    metrics = steps.make_diffusion_eval_step(with_physics_metrics=True)(
+        pred, batch, noise=noise.cuda(), t=t.cuda())
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]) == (gn, attn)
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.cuda
+def test_kernels_still_raise_under_grad_outside_train_trace(gen):
+    from diffusion_model_project_tpu_torch.models.layers import (GroupNorm, MultiheadSelfAttention,
+                                                                 train_trace)
+
+    norm = GroupNorm(1, 64, act="silu").cuda()
+    mha = MultiheadSelfAttention(64, 2).cuda()
+    torch.nn.init.normal_(mha.in_proj_weight, std=0.1)
+    x = torch.randn((2, 64, 8, 8), generator=gen, device="cuda", requires_grad=True)
+    tokens = torch.randn((2, 16, 64), generator=gen, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        norm(x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mha(tokens)
+    with train_trace():
+        (norm(x).square().sum() + mha(tokens).square().sum()).backward()
+    assert torch.isfinite(x.grad).all() and torch.isfinite(tokens.grad).all()
+    with pytest.raises(RuntimeError, match="no backward"):
+        norm(x)
+
+
+@pytest.mark.cuda
+def test_train_step_gradients_on_the_card_match_the_cpu(no_tf32):
+    import copy
+
+    from diffusion_model_project_tpu_torch.losses.physics import PhysicsLoss
+    from diffusion_model_project_tpu_torch.training import steps
+
+    cpu = _tiny_predictor()
+    card = copy.deepcopy(cpu).to("cuda")
+    batch, noise, t = _tiny_batch()
+    grads = []
+    for pred, d in ((cpu, "cpu"), (card, "cuda")):
+        pred.model.requires_grad_(True)
+        step = steps.make_diffusion_train_step(_GradCapture(pred.model),
+                                               physics=PhysicsLoss(0.1, 0.1, 0.01, 0.01),
+                                               lambda_velocity=0.1, accum_steps=2)
+        step(pred, {k: v.to(d) for k, v in batch.items()}, noise=noise.to(d), t=t.to(d))
+        grads.append(torch.cat([p.grad.reshape(-1).cpu() for p in pred.model.parameters()]))
+    assert _rel_err(grads[1], grads[0]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_published_train_step_with_physics_fits(gen):
+    """One train step at the published width (UNet 64..1024, VAE 128/256/512),
+    256^2 x 11, B=2, float32, the physics and velocity losses on: the
+    decoder's activations are rematerialized, so it fits; peak memory printed."""
+    from diffusion_model_project_tpu_torch.diffusion.predictor import LatentDiffusionPredictor
+    from diffusion_model_project_tpu_torch.losses.physics import PhysicsLoss
+    from diffusion_model_project_tpu_torch.training import steps
+    from diffusion_model_project_tpu_torch.training.train_diffusion import make_optimizer
+    from diffusion_model_project_tpu_torch.utils.config import (PUBLISHED_LATENT_CHANNELS,
+                                                                PUBLISHED_UNET_KWARGS)
+
+    pred = LatentDiffusionPredictor.create(dict(PUBLISHED_UNET_KWARGS), seed=0,
+                                           latent_channels=PUBLISHED_LATENT_CHANNELS)
+    pred.model.requires_grad_(True)
+    opt = make_optimizer(pred.model, 1e-4, ema_decay=0.999)
+    step = steps.make_diffusion_train_step(opt, physics=PhysicsLoss(0.1, 0.1, 0.01, 0.01),
+                                           lambda_velocity=0.1)
+    g = torch.Generator().manual_seed(1)
+    b, s, hw = 2, 11, 256
+    batch = {"img": (torch.rand((b, s, 1, hw, hw), generator=g) > 0.3).float().cuda(),
+             "U_2d": (torch.randn((b, s, 3, hw, hw), generator=g) * 1e-2).cuda(),
+             "U": (torch.randn((b, s, 3, hw, hw), generator=g) * 1e-2).cuda()}
+    torch.cuda.reset_peak_memory_stats()
+    aux = step(pred, batch, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"published train step with physics, B=2, 256^2 x 11, float32: peak {peak:.2f} GiB "
+          f"on {torch.cuda.get_device_name(0)}")
+    assert all(torch.isfinite(v) for v in aux.values()) and opt.count == 1
+    assert peak < 0.9 * torch.cuda.get_device_properties(0).total_memory / 2 ** 30

@@ -39,7 +39,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {"inference.py", "data/dataset.py", "utils/checkpoint.py", "utils/flax_msgpack.py",
             "utils/torch_import.py", "evaluate.py", "inference_vae.py",
             "scripts/eval_testset_end2end.py", "losses/metrics.py", "losses/eval_metrics.py",
-            "training/helper.py", "training/steps.py", "utils/vae_config.py"} <= names
+            "training/helper.py", "training/steps.py", "utils/vae_config.py",
+            "train.py", "training/train_diffusion.py", "losses/physics.py",
+            "utils/async_ckpt.py", "utils/preempt.py", "utils/tb.py", "utils/config.py"} <= names
     offenders = {str(f.relative_to(REPO)): sorted(set(_imported_top_levels(f)) & FORBIDDEN)
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}
@@ -101,6 +103,9 @@ def test_import_chain_leaves_jax_unloaded():
             "import diffusion_model_project_tpu_torch.losses\n"
             "import diffusion_model_project_tpu_torch.training.steps\n"
             "import diffusion_model_project_tpu_torch.utils.vae_config\n"
+            "import diffusion_model_project_tpu_torch.train\n"
+            "import diffusion_model_project_tpu_torch.training.train_diffusion\n"
+            "import diffusion_model_project_tpu_torch.utils.async_ckpt\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'msgpack', 'diffusion_model_project_tpu'))\n"
             "assert not bad, bad\n")
