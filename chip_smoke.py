@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 12, 11, 13, 6, 7 (the conv probe's
+Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 12, 14, 11, 13, 15, 6, 7 (the conv probe's
 device times are read before phase 3 profiles a UNet forward; see
 device_kernels); any failure raises and the script exits non-zero without
 printing a result line:
@@ -41,7 +41,8 @@ printing a result line:
      and t; the sanity (E3D, D3D) and cross (E2D, D3D) reconstructions;
   7. the kernel table as one JSON line (phase 9's numbers under each
      kernel's "cli", phase 11's under its "evaluation", phase 13's and the
-     training paths' launches under its "training"), then the result line;
+     training paths' launches under its "training", phase 15's and the VAE
+     training paths' launches under its "vae_training"), then the result line;
   8. entry point: a run dir in the reference layout (log.json naming a VAE
      dir, the dataset, evaluate's batch 2 and cost; best_model.pt of a
      seeded published-width predictor, float32; vae.pt with dual_full keys
@@ -89,7 +90,27 @@ printing a result line:
      bfloat16; then the kernel inputs of the validation and test passes
      and of a train step, recorded by a global hook;
  13. train kernels: phase 4 at the pairs of phase 12 that no earlier phase
-     held.
+     held;
+ 14. VAE training: the port's VAE trainers at the reference widths (latent
+     8, 128/256/512) on phase 8's dataset (8 train, 1 validation, 3 test
+     microstructures), B=2, float32 (TF32 convs), every microbatch and
+     validation / test batch timed with its launches held to the
+     module-derived counts (K1: 0 a stage-1 train microbatch, E3D + D3D a
+     stage-1 eval batch, the frozen E3D a stage-2 microbatch, all four
+     networks a stage-2 eval batch; K2 and K3 never): (a) the data-prep CLI
+     (generate_statistics --generate-split --force) into a copy of the
+     dataset; (b) stage 1, 2 epochs, accum 2, resident data; (c) stage 1
+     streamed, epoch 0 within 1e-4 of (b)'s, then --resume to 2, epoch 1
+     within 1e-3 of (b)'s; (d) stage 2 on (b) (lambda-align 5, lambda-cross
+     50), no frozen-weight warning; (e) the diffusion train CLI on (d) and
+     (b) for 1 epoch, then the inference CLI, DDIM-50, on its run dir; (f)
+     one stage-1 and one stage-2 microbatch's gradients on the card and on
+     the CPU, 128^2 x 3, B=1, TF32 off, within 1e-3; (g) 30 stage-1 steps
+     on one sample (the loss must fall), then one microbatch of each stage
+     under torch.profiler, its device time by kind of kernel; then the
+     kernels' inputs of each path, recorded by a global hook;
+ 15. VAE kernels: phase 4 at the pairs of phase 14 that no earlier phase
+     held, and K1's device time a batch of each VAE path.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -1601,6 +1622,534 @@ def phase_training(smi: str, data_dir: str, vae_dir: str, written_pred, root: st
     return res
 
 
+# the VAE training phase: the port's stage-1 / stage-2 trainers on phase 8's dataset
+VAE_EPOCHS, VAE_OVERFIT_STEPS = 2, 30
+VAE_STREAM_TOL, VAE_RESUME_TOL = 1e-4, 1e-3  # epoch 0 streamed / epoch 1 resumed, relative
+VAE_LATENT, VAE_FEATURES = 8, None  # the reference's (None: 128/256/512; a rehearsal narrows)
+VAE_CVC_HW = 128  # card vs CPU: 128^2 x 3, B=1
+
+
+class VAERecorder:
+    """Wraps the steps the VAE trainers build (``make_steps`` of
+    ``training/train_vae_stage{1,2}.py``): each call's host time
+    (synchronized before and after), its launches and its batch size."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        from diffusion_model_project_tpu_torch.training import train_vae_stage1, train_vae_stage2
+
+        self._saved = [(m, m.make_steps) for m in (train_vae_stage1, train_vae_stage2)]
+        for mod, orig in self._saved:
+            mod.make_steps = self._wrap(orig, "s1" if mod is train_vae_stage1 else "s2")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self._saved:
+            mod.make_steps = orig
+
+    def _wrap(self, factory, stage):
+        def make(*args, **kwargs):
+            train_step, apply_step, eval_step = factory(*args, **kwargs)
+
+            def timed(step, kind):
+                def run(batch, *a, **kw):
+                    _sync()
+                    before = _launches()
+                    t0 = time.perf_counter()
+                    out = step(batch, *a, **kw)
+                    _sync()
+                    secs = time.perf_counter() - t0
+                    after = _launches()
+                    self.steps.append({
+                        "kind": f"{stage}_{kind}", "seconds": secs,
+                        "batch": next(iter(batch.values())).shape[0],
+                        "launches": {k: after[k] - before[k] for k in after},
+                        "values": {k: float(v) for k, v in out.items()}})
+                    return out
+                return run
+            return timed(train_step, "train"), apply_step, timed(eval_step, "eval")
+        return make
+
+    def of(self, kind) -> list:
+        return [s for s in self.steps if s["kind"] == kind]
+
+
+class _Tee:
+    """Standard output copied into a buffer as it is written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def vae_gn_calls(vae) -> dict:
+    from diffusion_model_project_tpu_torch.models.layers import GroupNorm
+
+    return {name: sum(isinstance(m, GroupNorm) for m in getattr(vae, name).modules())
+            for name in ("encoder_2d", "encoder_3d", "decoder_2d", "decoder_3d")
+            if hasattr(vae, name)}
+
+
+def vae_run(label: str, main, argv: list, smi: str) -> dict:
+    """One VAE trainer call with the launch counters set to 0 before it and
+    read after it; every step timed and its launches held to the counts
+    derived from the trained modules: a stage-1 train microbatch none (all of
+    E3D / D3D needs a gradient), a stage-1 validation or test batch E3D + D3D;
+    a stage-2 microbatch the frozen E3D encode, a stage-2 validation batch
+    all four networks. K2 and K3 never."""
+    cuda = TRAIN_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    out_buf = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with VAERecorder() as rec:
+        old, sys.stdout = sys.stdout, out_buf
+        try:
+            vae, log_dict = main(argv)
+        finally:
+            sys.stdout = old
+    wall = time.perf_counter() - t0
+    total = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    calls = vae_gn_calls(vae)
+    stage = "s2" if "encoder_2d" in calls else "s1"
+    want = ({"s1_train": 0, "s1_eval": calls.get("encoder_3d", 0) + calls.get("decoder_3d", 0)}
+            if stage == "s1" else
+            {"s2_train": calls["encoder_3d"], "s2_eval": sum(calls.values())})
+    for st in rec.steps:
+        expected = {**_ZERO, "groupnorm_act": want[st["kind"]]}
+        if st["launches"] != expected:
+            raise RuntimeError(f"[vae training] {label}: a {st['kind']} step launched "
+                               f"{st['launches']}, expected {expected}")
+    launched = {kind: {k: sum(s["launches"][k] for s in rec.of(kind)) for k in _ZERO}
+                for kind in want}
+    if total != {k: sum(v[k] for v in launched.values()) for k in _ZERO}:
+        raise RuntimeError(f"[vae training] {label}: the run launched {total}, its steps "
+                           f"{launched}")
+    losses = [x for v in log_dict["loss"].values() for x in v]
+    values = [x for st in rec.steps for k, x in st["values"].items() if k != "bad"]
+    if not all(math.isfinite(x) for x in losses + values) or any(
+            st["values"]["bad"] for st in rec.steps):
+        raise RuntimeError(f"[vae training] {label}: a loss is not finite: {log_dict['loss']}")
+    save_dir = argv[argv.index("--save-dir") + 1]
+
+    def secs(kind, batch=None):
+        return [round(s["seconds"], 4) for s in rec.of(kind) if batch in (None, s["batch"])]
+
+    train_s, eval_s = secs(f"{stage}_train"), secs(f"{stage}_eval")
+    out = {"wall_s": wall, "peak_gib": peak, "launches": total, "launches_by_step": launched,
+           "per_step_launches": want, "train_s": train_s, "eval_s": eval_s,
+           "eval_batches": [s["batch"] for s in rec.of(f"{stage}_eval")],
+           "steady_train_s": sum(train_s[1:]) / len(train_s[1:]) if len(train_s) > 1 else None,
+           "epoch_s": log_dict["epoch_time"], "loss": log_dict["loss"],
+           "files": sorted(os.listdir(save_dir)), "stdout": "".join(out_buf.text)}
+    log(f"[vae training] {label}: {len(train_s)} train microbatches, s each "
+        + ", ".join(f"{x:.3f}" for x in train_s) + "; validation / test batches s "
+        + ", ".join(f"{x:.3f} (B={b})" for x, b in zip(eval_s, out["eval_batches"]))
+        + "; epoch s (vae_log.json) " + ", ".join(f"{x:.2f}" for x in log_dict["epoch_time"])
+        + f"; the call {wall:.1f} s; peak memory {peak:.2f} GiB | {smi}")
+    log(f"[vae training] {label}: launches a train microbatch / an eval batch "
+        f"{want} (K1, module-derived; K2 0, K3 0), over the run {launched}; losses "
+        + json.dumps(log_dict["loss"]) + f"; files {out['files']}")
+    return out
+
+
+def vae_card_vs_cpu() -> dict:
+    """One stage-1 microbatch (fixed noise) and one stage-2 microbatch, the
+    reference widths at 128^2 x 3, B=1, float32 with TF32 off, from the same
+    weights on the card and on the CPU: each trainable parameter's gradient,
+    max|g_card - g_cpu| / max|g_cpu|."""
+    from diffusion_model_project_tpu_torch.models.layers import train_trace
+    from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
+    from diffusion_model_project_tpu_torch.training import train_vae_stage1 as s1
+    from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        hw, s = VAE_CVC_HW, 3
+        gen = torch.Generator().manual_seed(21)
+        mask = (torch.rand((1, 1, s, hw, hw), generator=gen) > 0.3).float()
+        batch = {"velocity_2d": torch.randn((1, 3, s, hw, hw), generator=gen), "mask_2d": mask,
+                 "velocity_3d": torch.randn((1, 3, s, hw, hw), generator=gen), "mask_3d": mask}
+        batch["velocity_2d"][:, 2] = 0.0
+        noise = torch.randn((1, VAE_LATENT, s, hw // 4, hw // 4), generator=gen)
+        s1_vae = s1.Stage1VAE(3, VAE_LATENT, features=VAE_FEATURES)
+        s1_vae.init_parameters_(torch.Generator().manual_seed(22))
+        s2_vae = DualBranchVAE(3, VAE_LATENT, features=VAE_FEATURES or (128, 256, 512))
+        s2_vae.init_parameters_(torch.Generator().manual_seed(23))
+        for name in s2.FROZEN:
+            getattr(s2_vae, name).requires_grad_(False)
+        s2_vae.encoder_2d.remat = s2_vae.decoder_2d.remat = True
+        out = {}
+        for name, vae in (("stage 1", s1_vae), ("stage 2", s2_vae)):
+            grads, cpu_s = {}, None
+            card = copy.deepcopy(vae).to(TRAIN_DEVICE)
+            for side, d in (("cpu", "cpu"), ("card", TRAIN_DEVICE), ("card again", TRAIN_DEVICE)):
+                model = vae if side == "cpu" else card
+                params = [p for p in model.parameters() if p.requires_grad]
+                b = {k: v.to(d) for k, v in batch.items()}
+                t0 = time.perf_counter()
+                with train_trace():
+                    if name == "stage 1":
+                        loss, _ = s1.make_loss_fn(model, "normalized_mae_per_channel")(
+                            {"velocity": b["velocity_3d"], "microstructure": b["mask_3d"]},
+                            1e-3, noise=noise.to(d))
+                    else:
+                        loss, _ = s2.make_loss_fn(model, "normalized_mae_per_channel", 5.0,
+                                                  50.0)(b)
+                    g = torch.autograd.grad(loss, params)
+                if side == "cpu":
+                    cpu_s = time.perf_counter() - t0
+                grads[side] = torch.cat([x.reshape(-1).cpu() for x in g])
+                del model, g
+            del card
+            scale = grads["cpu"].abs().max()
+            rel = ((grads["card"] - grads["cpu"]).abs().max() / scale).item()
+            # the same microbatch twice on the card: nonzero where its kernels
+            # (cuDNN's 3D conv backward) sum in a run-dependent order
+            repeat = ((grads["card again"] - grads["card"]).abs().max() / scale).item()
+            log(f"[vae training] (f) card vs CPU, one {name} microbatch's gradients, reference "
+                f"widths, {s}x{hw}^2, B=1, float32, TF32 off: max|g_card - g_cpu| / max|g_cpu| "
+                f"= {rel:.3e} (tol {CARD_VS_CPU_TOL:.0e}); the card against itself {repeat:.3e}; "
+                f"cpu {cpu_s:.1f} s")
+            if not (torch.isfinite(grads["card"]).all() and rel <= CARD_VS_CPU_TOL):
+                raise RuntimeError(f"{name} gradients: card and CPU disagree, {rel:.3e}")
+            out[name] = {"rel_err": rel, "tol": CARD_VS_CPU_TOL, "cpu_s": cpu_s,
+                         "card_repeat_rel": repeat}
+        return out
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def vae_overfit_and_profile(data_dir: str, s1_dir: str, smi: str) -> dict:
+    """(g) 30 stage-1 steps (lr 1e-4, accum 1) on one fixed sample of the
+    dataset with fixed noise: the loss must end below where it started.
+    Then one stage-1 and one stage-2 microbatch (B=2) under torch.profiler,
+    their device time by kind of kernel."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_project_tpu_torch.data.dataset import MicroFlowDatasetVAE
+    from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
+    from diffusion_model_project_tpu_torch.scripts.train_step_time import kind
+    from diffusion_model_project_tpu_torch.training import train_vae_stage1 as s1
+    from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
+    from diffusion_model_project_tpu_torch.utils.checkpoint import load_strict
+
+    with open(os.path.join(s1_dir, "vae_log.json")) as f:
+        s1_log = json.load(f)
+    nf = np.asarray(s1_log["norm_factors"], np.float32).reshape(3, 1, 1, 1)
+    ds = MicroFlowDatasetVAE(data_dir)
+    n = ds.num_microstructures
+    items = [ds[n + i] for i in range(TRAIN_B)] + [ds[i] for i in range(TRAIN_B)]
+    v3d = torch.from_numpy(np.stack([it["velocity"] / nf for it in items[:TRAIN_B]]))
+    m = torch.from_numpy(np.stack([it["microstructure"] for it in items[:TRAIN_B]]))
+    v2d = torch.from_numpy(np.stack([it["velocity"] / nf for it in items[TRAIN_B:]]))
+    dev = TRAIN_DEVICE
+    batch1 = {"velocity": v3d.to(dev), "microstructure": m.to(dev)}
+    batch2 = {"velocity_2d": v2d.to(dev), "mask_2d": m.to(dev), "velocity_3d": v3d.to(dev),
+              "mask_3d": m.to(dev)}
+
+    vae = s1.Stage1VAE(3, s1_log["latent_channels"], features=s1_log["features"])
+    vae.init_parameters_(torch.Generator().manual_seed(31))
+    vae.to(dev)
+    opt = s1.AccumAdam(vae, 1e-4)
+    train_step, _, _ = s1.make_steps(vae, s1_log["loss_function"], opt, accum_steps=1)
+    c, d, h, w = v3d.shape[1:]
+    noise = torch.randn((TRAIN_B, s1_log["latent_channels"], d, h // 4, w // 4),
+                        generator=torch.Generator().manual_seed(32)).to(dev)
+    one = {k: v[:1] for k, v in batch1.items()}
+    _sync()
+    t0 = time.perf_counter()
+    losses = [float(train_step(one, 1e-5, True, noise=noise[:1])["recons"])
+              for _ in range(VAE_OVERFIT_STEPS)]
+    overfit_s = (time.perf_counter() - t0) / VAE_OVERFIT_STEPS
+    log(f"[vae training] (g) overfit: {VAE_OVERFIT_STEPS} stage-1 steps on one sample (fixed "
+        f"noise, lr 1e-4, accum 1): reconstruction loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+        f"(min {min(losses):.6f}); {overfit_s:.4f} s a step | {smi}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise RuntimeError(f"overfit: the loss did not fall: {losses}")
+
+    vae2 = DualBranchVAE(3, s1_log["latent_channels"], features=s1_log["features"])
+    vae2.init_parameters_(torch.Generator().manual_seed(33))
+    for name in s2.FROZEN:
+        load_strict(getattr(vae2, name), getattr(vae, name).state_dict(), name)
+        getattr(vae2, name).requires_grad_(False)
+    vae2.encoder_2d.remat = vae2.decoder_2d.remat = True
+    vae2.to(dev)
+    opt2 = s1.AccumAdam(vae2, 5e-5)
+    train_step2, _, _ = s2.make_steps(vae2, s1_log["loss_function"], opt2, 5.0, 50.0,
+                                      accum_steps=2)
+    train_step2(batch2, False)  # the stage-2 step's first call, outside the trace
+    profiles = {}
+    for name, fn in (("stage 1", lambda: train_step(batch1, 1e-5, False, noise=noise)),
+                     ("stage 2", lambda: train_step2(batch2, False))):
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if dev == "cuda":
+                for _ in range(SENTINELS):
+                    torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kind = collections.defaultdict(lambda: [0.0, 0])
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA and "sleep" not in e.name
+                    and not e.name.startswith("Optimizer.")):
+                k = by_kind[kind(e.name)]
+                k[0] += (e.time_range.end - e.time_range.start) / 1e3
+                k[1] += 1
+        device_ms = sum(v[0] for v in by_kind.values())
+        profiles[name] = {"wall_ms": wall_ms, "device_ms": device_ms,
+                          "by_kind": {k: {"ms": ms, "launches": c}
+                                      for k, (ms, c) in by_kind.items()}}
+        log(f"[vae training] one {name} microbatch under torch.profiler: {wall_ms:.1f} ms wall, "
+            f"{device_ms:.1f} ms on the device | {smi}")
+        for k, (ms, c) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
+            log(f"[vae training]   {k:12s} {ms:9.3f} ms {c:6d} launches")
+    del vae, vae2, opt, opt2
+    return {"losses": losses, "overfit_s_per_step": overfit_s, "profile": profiles}
+
+
+def phase_vae_training(smi: str, data_dir: str, root: str, written_pred) -> dict:
+    """The port's VAE training (``train_3d_vae_only`` / ``train_2d_with_cross``)
+    at the reference widths (latent 8, 128/256/512) on phase 8's dataset (12
+    microstructures of 256^2 x 11: 8 train, 1 validation, 3 test), B=2,
+    float32 with cuDNN's default TF32 convolutions: (a) the data-prep CLI
+    into a copy of the dataset; (b) stage 1, 2 epochs, accum 2, resident
+    data; (c) stage 1 streamed: epoch 0 against (b)'s, then --resume to 2,
+    epoch 1 against (b)'s; (d) stage 2 on (b), the README's recipe; (e) the
+    diffusion train CLI on (d) + (b) for 1 epoch, then the inference CLI,
+    DDIM-50, on its run dir; (f) card vs CPU gradients; (g) overfitting one
+    batch, and one microbatch of each stage profiled. Then the kernels'
+    inputs of each path, recorded by a hook in runs of their own."""
+    from diffusion_model_project_tpu_torch import inference
+    from diffusion_model_project_tpu_torch.scripts import generate_statistics
+    from diffusion_model_project_tpu_torch.training import train_vae_stage1 as s1
+    from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
+
+    base = os.path.join(root, "vae")
+    res = {}
+    t_phase = time.perf_counter()
+
+    # (a) data prep into a copy of the dataset (the trainers read phase 8's)
+    prep = os.path.join(base, "prep")
+    os.makedirs(os.path.join(prep, "x"))
+    for name in os.listdir(os.path.join(data_dir, "x")):
+        if name.endswith(".pt"):
+            os.symlink(os.path.join(data_dir, "x", name), os.path.join(prep, "x", name))
+    t0 = time.perf_counter()
+    stats = generate_statistics.main(["--dataset-dir", prep, "--generate-split", "--force"])
+    prep_s = time.perf_counter() - t0
+    with open(os.path.join(data_dir, "statistics.json")) as f:
+        used = json.load(f)
+    with open(os.path.join(prep, "splits.json")) as f:
+        splits = json.load(f)
+    log(f"[vae training] (a) generate_statistics --generate-split --force in {prep_s:.1f} s: "
+        f"keys {sorted(stats)}, split {[len(splits[k]) for k in ('train', 'val', 'test')]}; "
+        f"U_per_component max {[stats['U_per_component'][f'max_{c}'] for c in 'uvw']} | the "
+        f"statistics.json the trainers read: keys {sorted(used)}, U_per_component max "
+        f"{[used['U_per_component'][f'max_{c}'] for c in 'uvw']}")
+    if not all(k in stats for k in ("U", "U_per_component", "U_2d", "U_2d_per_component",
+                                     "metadata")):
+        raise RuntimeError(f"(a): statistics.json lacks keys: {sorted(stats)}")
+    res["a"] = {"seconds": prep_s, "keys": sorted(stats), "used_keys": sorted(used),
+                "U_per_component": stats["U_per_component"],
+                "used_U_per_component": used["U_per_component"]}
+
+    def s1_argv(save, *extra):
+        return ["--dataset-dir", data_dir, "--save-dir", save, "--grad-accum", "2",
+                "--device", TRAIN_DEVICE, "--latent-channels", str(VAE_LATENT),
+                *(["--features", *map(str, VAE_FEATURES)] if VAE_FEATURES else []), *extra]
+
+    # (b) stage 1, resident data
+    dir_b = os.path.join(base, "s1")
+    run_b = vae_run("(b) stage 1, 2 epochs, accum 2, --cache-data auto", s1.main,
+                    s1_argv(dir_b, "--num-epochs", str(VAE_EPOCHS), "--cache-data", "auto"), smi)
+    want = ["best_model.msgpack", "train_state.msgpack", "vae.msgpack", "vae_log.json"]
+    if run_b["files"] != want or "Device data store" not in run_b["stdout"]:
+        raise RuntimeError(f"(b): the run dir holds {run_b['files']}, expected {want}; "
+                           f"resident: {'Device data store' in run_b['stdout']}")
+    res["b"] = run_b
+
+    # (c) stage 1 streamed, then resumed
+    dir_c = os.path.join(base, "s1_streamed")
+    argv_c = s1_argv(dir_c, "--cache-data", "false")
+    first = vae_run("(c) stage 1 streamed, 1 epoch", s1.main, [*argv_c, "--num-epochs", "1"], smi)
+    resumed = vae_run("(c) stage 1 streamed, --resume to 2 epochs", s1.main,
+                      [*argv_c, "--num-epochs", str(VAE_EPOCHS), "--resume"], smi)
+    lb, lc = run_b["loss"], resumed["loss"]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    diffs = {"epoch0": {k: rel(first["loss"][k][0], lb[k][0])
+                        for k in ("recons_train", "recons_val")},
+             "epoch1": {k: rel(lc[k][1], lb[k][1]) for k in ("recons_train", "recons_val")}}
+    log(f"[vae training] (c) streamed epoch 0 against (b)'s resident one: recons train / val "
+        f"{first['loss']['recons_train'][0]!r} / {first['loss']['recons_val'][0]!r} against "
+        f"{lb['recons_train'][0]!r} / {lb['recons_val'][0]!r}, relative differences "
+        f"{diffs['epoch0']} (tol {VAE_STREAM_TOL:.0e}); resumed epoch 1 "
+        f"{lc['recons_train'][1]!r} / {lc['recons_val'][1]!r} against {lb['recons_train'][1]!r} / "
+        f"{lb['recons_val'][1]!r}, relative differences {diffs['epoch1']} "
+        f"(tol {VAE_RESUME_TOL:.0e})")
+    if not (max(diffs["epoch0"].values()) <= VAE_STREAM_TOL
+            and max(diffs["epoch1"].values()) <= VAE_RESUME_TOL
+            and "Device data store" not in first["stdout"]):
+        raise RuntimeError(f"(c): the streamed or resumed run differs from (b): {diffs}")
+    res["c"] = {"first": first, "resumed": resumed, "rel_diff": diffs}
+    shutil.rmtree(dir_c)
+
+    # (d) stage 2 on (b)'s dir, the README's recipe
+    dir_d = os.path.join(base, "s2")
+    run_d = vae_run("(d) stage 2 on (b), --lambda-align 5 --lambda-cross 50, 2 epochs, accum 2",
+                    s2.main, ["--dataset-dir", data_dir, "--save-dir", dir_d,
+                              "--stage1-checkpoint", dir_b, "--lambda-align", "5",
+                              "--lambda-cross", "50", "--grad-accum", "2", "--num-epochs",
+                              str(VAE_EPOCHS), "--device", TRAIN_DEVICE, "--latent-channels",
+                              str(VAE_LATENT)], smi)
+    want = ["best_model.msgpack", "model.msgpack", "train_state.msgpack", "vae_log.json"]
+    if run_d["files"] != want or "weights changed" in run_d["stdout"]:
+        raise RuntimeError(f"(d): files {run_d['files']}; a frozen-weight warning: "
+                           f"{'weights changed' in run_d['stdout']}")
+    res["d"] = run_d
+
+    # (e) the README pipeline on the port's own VAE dirs: diffusion training,
+    # then inference (the predictor's VAE and UNet have phase 8's modules)
+    save_e = os.path.join(base, "diffusion")
+    argv_e = train_argv(data_dir, dir_d, save_e, "--num-epochs", "1")
+    argv_e[argv_e.index("--vae-path")] = "--vae-encoder-path"
+    argv_e += ["--vae-decoder-path", dir_b]
+    calls = module_calls(written_pred)
+    run_e = train_run("(e) diffusion train CLI on the port's stage-2 (encoder) and stage-1 "
+                      "(decoder) dirs, 1 epoch", argv_e, calls, smi)
+    dir_e = os.path.join(save_e, run_e["run_dir"])
+    _zero_launches()
+    cli = inference.run(["--model-dir", dir_e, "--sampler", "ddim", "--steps", str(STEPS),
+                         "--device", TRAIN_DEVICE])
+    launched = _launches()
+    gn, attn = expected_calls(cli.predictor, STEPS)
+    ok = (cli.prediction.shape[:3] == (1, S, 3)
+          and bool(torch.isfinite(torch.from_numpy(cli.prediction)).all()))
+    log(f"[vae training] (e) inference CLI, DDIM-{STEPS}, on (e)'s run dir: output "
+        f"{cli.prediction.shape} finite: {ok}; request {cli.seconds * 1e3:.1f} ms; launches "
+        f"{launched} (expected {gn} / {attn} / 0)")
+    if not ok or launched != {"groupnorm_act": gn, "fused_attention": attn, "conv3x3": 0}:
+        raise RuntimeError(f"(e): output ok {ok}, launches {launched}")
+    res["e"] = {"train": run_e, "request_ms": cli.seconds * 1e3, "launches": launched}
+    del cli
+    shutil.rmtree(save_e)
+
+    # (f) card vs CPU
+    res["f"] = vae_card_vs_cpu()
+
+    # (g) overfit one batch; one microbatch of each stage profiled
+    res["g"] = vae_overfit_and_profile(data_dir, dir_b, smi)
+
+    # the kernels' inputs on these paths: a stage-1 validation / test batch
+    # (B=2 and the ragged B=1), a stage-2 microbatch (the frozen E3D encode)
+    # and a stage-2 validation batch, float32, each counted a batch
+    seen_by_path = {}
+    for path, fn in vae_hooked_paths(data_dir, dir_b, dir_d).items():
+        seen, handles = record_shapes()
+        try:
+            fn()
+        finally:
+            for h in handles:
+                h.remove()
+        seen_by_path[path] = seen
+    shutil.rmtree(base)
+    res["shapes_by_path"] = seen_by_path
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[vae training] the phase took {res['seconds']:.1f} s | {smi}")
+    return res
+
+
+def vae_hooked_paths(data_dir: str, dir_b: str, dir_d: str) -> dict:
+    """One batch of each VAE training path on the written dirs' weights, for
+    the shape hook: {path: callable}."""
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.data.dataset import MicroFlowDatasetVAE
+    from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
+    from diffusion_model_project_tpu_torch.training import train_vae_stage1 as s1
+    from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
+    from diffusion_model_project_tpu_torch.utils import flax_msgpack
+    from diffusion_model_project_tpu_torch.utils.checkpoint import load_vae_params
+
+    with open(os.path.join(dir_b, "vae_log.json")) as f:
+        log_b = json.load(f)
+    nf = np.asarray(log_b["norm_factors"], np.float32).reshape(3, 1, 1, 1)
+    ds = MicroFlowDatasetVAE(data_dir)
+    n = ds.num_microstructures
+    dev = TRAIN_DEVICE
+
+    def batch(idx):
+        items = [ds[i] for i in idx]
+        return (torch.from_numpy(np.stack([it["velocity"] / nf for it in items])).to(dev),
+                torch.from_numpy(np.stack([it["microstructure"] for it in items])).to(dev))
+
+    vae1 = s1.Stage1VAE(3, log_b["latent_channels"], features=log_b["features"])
+    load_vae_params(vae1, flax_msgpack.load(os.path.join(dir_b, "vae.msgpack")), dir_b)
+    vae1.to(dev)
+    _, _, eval1 = s1.make_steps(vae1, log_b["loss_function"], s1.AccumAdam(vae1, 1e-4))
+    vae2 = DualBranchVAE(3, log_b["latent_channels"], features=log_b["features"])
+    load_vae_params(vae2, flax_msgpack.load(os.path.join(dir_d, "model.msgpack")), dir_d)
+    for name in s2.FROZEN:
+        getattr(vae2, name).requires_grad_(False)
+    vae2.encoder_2d.remat = vae2.decoder_2d.remat = True
+    vae2.to(dev)
+    train2, _, eval2 = s2.make_steps(vae2, log_b["loss_function"], s1.AccumAdam(vae2, 5e-5),
+                                     5.0, 50.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def s1_eval(b):
+        v, m = batch([n + i for i in range(b)])
+        eval1({"velocity": v, "microstructure": m}, 1e-3, generator=gen)
+
+    def s2_batch(b):
+        v3, m = batch([n + i for i in range(b)])
+        v2, _ = batch(list(range(b)))
+        return {"velocity_2d": v2, "mask_2d": m, "velocity_3d": v3, "mask_3d": m}
+
+    return {"s1_eval_b2": lambda: s1_eval(2), "s1_eval_b1": lambda: s1_eval(1),
+            "s2_train_b2": lambda: train2(s2_batch(2), False),
+            "s2_eval_b2": lambda: eval2(s2_batch(2)), "s2_eval_b1": lambda: eval2(s2_batch(1))}
+
+
+def vae_k1_device_ms(shapes_by_path: dict, rows: list) -> dict:
+    """K1's device time a batch of each VAE training path: each (shape,
+    dtype)'s device time a call, from the kernel rows of whichever phase held
+    it, times its calls in that path's batch, summed."""
+    by_key = {(r["kernel"], tuple(r["shape"]), r["detail"]): r for r in rows}
+    out = {}
+    for path, seen in shapes_by_path.items():
+        total = bound = 0.0
+        for key, calls in seen.items():
+            _, shape, groups, act, dtype = key
+            row = by_key[("groupnorm_act", tuple(shape),
+                          f"G={groups} act={act or 'none'} {dtype.replace('torch.', '')}")]
+            total += row["device_ms"] * calls
+            bound += row["bound_ms"] * calls
+        out[path] = {"calls": sum(seen.values()), "device_ms": total, "bound_ms": bound}
+    log("[vae kernels] K1 a batch of each VAE training path (device ms from the rows that hold "
+        "each shape): " + "; ".join(f"{p} {v['calls']} calls, device {v['device_ms']:.3f}, bound "
+                                    f"{v['bound_ms']:.3f}" for p, v in out.items()))
+    return out
+
+
 def _totals(rs: list) -> dict:
     """A kernel's numbers a request from its rows: each shape's time times
     its calls a request, summed; the largest error."""
@@ -1615,7 +2164,8 @@ def _totals(rs: list) -> dict:
 
 
 def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_rows: list,
-              eval_paths: list, train_rows: list, train_paths: list) -> list:
+              eval_paths: list, train_rows: list, train_paths: list, vae_rows: list,
+              vae_paths: list, vae_k1: dict) -> list:
     """One entry per kernel; times are per request of its path: one
     predict_ddim for K1 and K2, one call at each probe stage (the planner's
     tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
@@ -1625,7 +2175,9 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
     earlier phase held, calls counted over phase "evaluation"'s hooked runs,
     with the launches of each evaluation path; ``training`` at the training
     paths' pairs that no earlier phase held (the validation and test passes,
-    and the train steps' frozen encodes), with the training paths' launches."""
+    and the train steps' frozen encodes), with the training paths' launches;
+    ``vae_training`` likewise for the VAE trainers' paths, with K1's device
+    time a batch of each."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
                           "diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py:47"),
@@ -1658,6 +2210,14 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
             entry["training"].update({"dtypes": sorted({r["dtype"] for r in tr}),
                                       "rel_err": max(r["rel_err"] for r in tr),
                                       "tol": max(r["tol"] for r in tr), **_totals(tr)})
+        vr = [r for r in vae_rows if r["kernel"] == name]
+        entry["vae_training"] = {"launches": {p: by_path[p][name] for p in vae_paths}}
+        if name == "groupnorm_act":
+            entry["vae_training"]["device_ms_a_batch"] = vae_k1
+        if vr:
+            entry["vae_training"].update({"dtypes": sorted({r["dtype"] for r in vr}),
+                                          "rel_err": max(r["rel_err"] for r in vr),
+                                          "tol": max(r["tol"] for r in vr), **_totals(vr)})
         out.append(entry)
     return out
 
@@ -1699,6 +2259,7 @@ def main() -> int:
         ev = phase_evaluation(device["nvidia_smi"], run_dir, vae_dir, data_dir, written_pred,
                               set(sl["shapes"]) | set(ep["shapes"]))
         tr = phase_training(device["nvidia_smi"], data_dir, vae_dir, written_pred, root)
+        vt = phase_vae_training(device["nvidia_smi"], data_dir, root, written_pred)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     mark = dict(PROFILER)
@@ -1717,6 +2278,22 @@ def main() -> int:
         train_rows, train_k1_parts = phase_kernels(
             tr["new_shapes"], {k[0]: 1 for k in tr["new_shapes"]}, tag="train kernels")
         tallies.append(tally("train kernels", mark))
+    held |= set(tr["shapes"])
+    vae_shapes = collections.Counter()
+    for seen in vt["shapes_by_path"].values():
+        vae_shapes.update(seen)
+    vt["new_shapes"] = {k: v for k, v in vae_shapes.items() if k not in held}
+    log(f"[vae training] the kernels' inputs on the VAE training paths: {len(vae_shapes)} "
+        f"(shape, dtype) pairs, {len(vt['new_shapes'])} not held by an earlier phase: "
+        + ", ".join(f"{k[0]} {k[1]} {k[-1]}" for k in sorted(vt["new_shapes"], key=str)))
+    vae_rows, vae_k1_parts = [], {}
+    if vt["new_shapes"]:
+        mark = dict(PROFILER)
+        vae_rows, vae_k1_parts = phase_kernels(
+            vt["new_shapes"], {k[0]: 1 for k in vt["new_shapes"]}, tag="vae kernels")
+        tallies.append(tally("vae kernels", mark))
+    vt["k1_device_ms"] = vae_k1_device_ms(vt["shapes_by_path"],
+                                          rows + cli_rows + eval_rows + train_rows + vae_rows)
     cvc = phase_card_vs_cpu()
     eval_paths = {"evaluate": ev["evaluate"]["launches"],
                   **{f"eval_{k}": v["launches"] for k, v in ev["end2end"].items()},
@@ -1724,13 +2301,16 @@ def main() -> int:
     train_paths = {"train_steps": tr["a"]["train_step_launches"],
                    "train_eval_passes": tr["a"]["eval_launches"],
                    "train_physics_eval_passes": tr["b"]["eval_launches"]}
+    vae_paths = {f"vae_{stage}_{kind}": vt[run]["launches_by_step"][f"{stage}_{kind}"]
+                 for stage, run in (("s1", "b"), ("s2", "d")) for kind in ("train", "eval")}
     by_path = {"ddim_slice": {**sl["launches"], "conv3x3": 0},
                "conv_probe": {"groupnorm_act": 0, "fused_attention": 0,
                               "conv3x3": conv_launches},
                **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}, **eval_paths,
-               **train_paths}
+               **train_paths, **vae_paths}
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches}, by_path,
-                        cli_rows, eval_rows, sorted(eval_paths), train_rows, sorted(train_paths))
+                        cli_rows, eval_rows, sorted(eval_paths), train_rows, sorted(train_paths),
+                        vae_rows, sorted(vae_paths), vt["k1_device_ms"])
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
@@ -1747,6 +2327,12 @@ def main() -> int:
                                     for k, v in tr[key].items()]
                               for key in ("shapes", "new_shapes")}},
         "train_kernel_rows": train_rows, "train_k1_request_ms": train_k1_parts,
+        "vae_training": {**vt, "shapes_by_path": {
+            p: [{"key": list(map(str, k)), "calls": v} for k, v in seen.items()]
+            for p, seen in vt["shapes_by_path"].items()},
+            "new_shapes": [{"key": list(map(str, k)), "calls": v}
+                           for k, v in vt["new_shapes"].items()]},
+        "vae_kernel_rows": vae_rows, "vae_k1_request_ms": vae_k1_parts,
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -11,8 +11,9 @@ the 70/15/15 split from ``splits.json`` or ``random.Random(seed)`` (seed
 arrays. A missing or empty dataset dir raises (the JAX package downloads the
 Zenodo record there). ``MicroFlowDatasetVAE`` is the VAE view (reference
 VAE_model/utils/dataset.py): the index space doubled to 2N, 2D samples then
-3D ones, each item (C, D, H, W). The paired VAE view, ``split.py``,
-``statistics.py`` and ``paired_sampler.py`` belong to training and are not
+3D ones, each item (C, D, H, W). The split and statistics writers live in
+``split.py`` and ``statistics.py``; the paired VAE view (the VAE trainers'
+``PairedDataset`` stands in for it) and ``paired_sampler.py`` are not
 ported yet.
 """
 from __future__ import annotations

@@ -124,14 +124,17 @@ class _Stages(nn.Module):
     """Residual blocks run with or without the condition. ``remat``: under
     autograd each residual block goes through ``torch.utils.checkpoint``, so
     its activations are recomputed in backward instead of stored (the JAX
-    ``nn.remat``; differentiating through the 256^2 x 11 decoder does not
-    fit otherwise). Parameters and results are unchanged."""
+    ``nn.remat``; differentiating through the 256^2 x 11 VAE networks does
+    not fit otherwise). A block checkpoints only where its input or a
+    parameter needs a gradient: a frozen network on a frozen input stores
+    nothing either way. Parameters and results are unchanged."""
 
     remat = False
 
     def _res(self, block, x, condition):
         args = (x,) if condition is None else (x, condition)
-        if self.remat and torch.is_grad_enabled():
+        if self.remat and torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in block.parameters())):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 

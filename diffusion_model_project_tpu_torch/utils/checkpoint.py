@@ -23,7 +23,9 @@ msgpack encoder: ``model.msgpack`` / ``best_model.msgpack`` /
 params, the normalizers) and ``train_state.msgpack`` (the predictor state,
 the optimizer state in optax's ``to_state_dict`` layout, the epoch and the
 best validation loss), so the JAX package's ``predictor_from_directory`` and
-``load_train_state`` read what the port writes, and the reverse.
+``load_train_state`` read what the port writes, and the reverse. The VAE
+trainers' run dirs hold flax trees keyed by branch (``vae_params`` /
+``load_vae_params``).
 """
 from __future__ import annotations
 
@@ -137,21 +139,22 @@ def predictor_state(predictor, frozen_vae: Optional[dict] = None,
     }
 
 
-def _host(tree):
+def host_copy(tree):
     """``tree`` with every (float32) tensor leaf as a C-ordered numpy copy."""
     if isinstance(tree, dict):
-        return {k: _host(v) for k, v in tree.items()}
+        return {k: host_copy(v) for k, v in tree.items()}
     return tree.detach().cpu().contiguous().numpy().copy()
 
 
 def frozen_vae_params(predictor) -> dict:
     """A host copy of the predictor's VAE as flax params, for ``frozen_vae``."""
-    return _host(weights.dual_vae_to_flax(predictor.vae.state_dict()))
+    return host_copy(weights.dual_vae_to_flax(predictor.vae.state_dict()))
 
 
-def _write(path: str, tree, writer) -> None:
+def save_tree(path: str, tree, writer=None) -> None:
     """Write ``tree`` as flax msgpack to ``path`` atomically, now or through
-    an ``AsyncCheckpointWriter``."""
+    an ``AsyncCheckpointWriter`` (from a device copy taken before this
+    returns)."""
     if writer is None:
         atomic_write(path, flax_msgpack.msgpack_serialize(tree))
         return
@@ -165,7 +168,7 @@ def save_predictor(predictor, path: str, writer=None, frozen_vae: Optional[dict]
     """Write ``predictor_state`` to ``path`` (flax msgpack), atomically; with
     an ``AsyncCheckpointWriter`` the host copy, serialization and write run
     on its thread, from a snapshot taken here."""
-    _write(path, predictor_state(predictor, frozen_vae, unet_state), writer)
+    save_tree(path, predictor_state(predictor, frozen_vae, unet_state), writer)
 
 
 def save_train_state(path: str, predictor, optimizer, epoch: int, best_loss: float,
@@ -180,7 +183,7 @@ def save_train_state(path: str, predictor, optimizer, epoch: int, best_loss: flo
         "epoch": np.asarray(epoch, np.int64),
         "best_loss": np.asarray(best_loss, np.float64),
     }
-    _write(path, state, writer)
+    save_tree(path, state, writer)
 
 
 def _load_predictor_tree(predictor, state: dict, path: str):
@@ -245,6 +248,37 @@ def _native_branch(role: str, tree: dict, folder: str) -> StateDict:
     """A native VAE branch's flax params as the state dict of ``role``."""
     return _from_flax(lambda t: weights.export_vae_branch(role, t), tree,
                       f"{role} from {folder}")
+
+
+def vae_branches(module: nn.Module) -> Tuple[str, ...]:
+    """The VAE branches (``encoder_2d``, ...) ``module`` holds as children."""
+    return tuple(name for name in BRANCHES if isinstance(getattr(module, name, None), nn.Module))
+
+
+def vae_params(module: nn.Module, branches=None) -> dict:
+    """Flax params of ``module``'s VAE branches (all of them, or
+    ``branches``), keyed by branch as the JAX package's VAE run dirs hold
+    them: views of the live tensors (snapshot before the next step)."""
+    return {name: weights.vae_branch_to_flax(name, getattr(module, name).state_dict())
+            for name in branches or vae_branches(module)}
+
+
+def load_vae_params(module: nn.Module, tree: dict, what: str, branches=None) -> None:
+    """Load the flax VAE branch params of a run-dir file into ``module``'s
+    branches (all of them, or ``branches``), strictly: a branch missing from
+    the tree or one more than expected raises, as does any key or shape."""
+    branches = tuple(branches or vae_branches(module))
+    if set(tree) != set(branches):
+        raise ValueError(f"{what}: holds the branches {sorted(tree)}, expected "
+                         f"{sorted(branches)}")
+    for name, sd in vae_state_dicts(tree, what).items():
+        load_strict(getattr(module, name), sd, f"{name} from {what}")
+
+
+def vae_state_dicts(tree: dict, what: str) -> Dict[str, StateDict]:
+    """Each VAE branch of a flax tree (weights, Adam moments or accumulated
+    gradients) as its state dict; a leaf the layout lacks or misses raises."""
+    return {name: _native_branch(name, params, what) for name, params in tree.items()}
 
 
 def _read_log(path: str) -> Optional[dict]:

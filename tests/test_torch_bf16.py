@@ -28,6 +28,7 @@ import torch
 
 from test_torch_predictor import HW, LATENT, S, _port_predictor
 from test_torch_predictor import jax_predictor  # noqa: F401  (module fixture)
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 STEPS = 5
 

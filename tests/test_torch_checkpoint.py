@@ -30,6 +30,7 @@ from diffusion_model_project_tpu_torch.utils import checkpoint, flax_msgpack, we
 
 from test_torch_models import randomize_zero_inits
 from test_torch_predictor import LATENT, NORM_OUTPUT, S, HW, UNET_KW, VAE_FEATURES
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 T = 20
 

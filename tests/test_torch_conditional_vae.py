@@ -18,6 +18,8 @@ from diffusion_model_project_tpu.models.vae import (
 from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE, FiLM
 from diffusion_model_project_tpu_torch.utils import weights
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 LATENT = 4
 

@@ -19,6 +19,8 @@ from jax.experimental.pallas import tpu as pltpu
 from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
 from diffusion_model_project_tpu_torch.scripts import perf_probe_conv as probe
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # float32 sums over 9 * Cin taps, in another order on each side
 TOL = 1e-5

@@ -521,3 +521,86 @@ def test_published_train_step_with_physics_fits(gen):
           f"on {torch.cuda.get_device_name(0)}")
     assert all(torch.isfinite(v) for v in aux.values()) and opt.count == 1
     assert peak < 0.9 * torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+
+
+# ------------------------------------------------------- the VAE trainers
+
+
+def _vae_batch(b=2, s=3, hw=32, seed=8):
+    g = torch.Generator().manual_seed(seed)
+    mask = (torch.rand((b, 1, s, hw, hw), generator=g) > 0.3).float()
+    batch = {"velocity_2d": torch.randn((b, 3, s, hw, hw), generator=g), "mask_2d": mask,
+             "velocity_3d": torch.randn((b, 3, s, hw, hw), generator=g), "mask_3d": mask}
+    batch["velocity_2d"][:, 2] = 0.0
+    return batch, torch.randn((b, 4, s, hw // 4, hw // 4), generator=g)
+
+
+def _stage2_vae():
+    from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
+    from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
+
+    vae = DualBranchVAE(3, 4, features=(32, 32, 32))
+    vae.init_parameters_(torch.Generator().manual_seed(9))
+    for name in s2.FROZEN:
+        getattr(vae, name).requires_grad_(False)
+    vae.encoder_2d.remat = vae.decoder_2d.remat = True
+    return vae
+
+
+@pytest.mark.cuda
+def test_vae_steps_launch_k1_where_no_gradient_is_needed(gen):
+    """A stage-1 train microbatch launches no kernel (all of E3D / D3D needs
+    a gradient), a stage-1 validation batch K1 for E3D + D3D; a stage-2
+    microbatch K1 for the frozen E3D encode, a stage-2 validation batch for
+    all four networks; K2 never."""
+    from diffusion_model_project_tpu_torch.training import train_vae_stage1 as s1
+    from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
+
+    batch, noise = _vae_batch()
+    batch = {k: v.cuda() for k, v in batch.items()}
+    vae1 = s1.Stage1VAE(3, 4, features=(32, 32, 32)).cuda()
+    t1, _, e1 = s1.make_steps(vae1, "normalized_mae_per_channel", s1.AccumAdam(vae1, 1e-4),
+                              accum_steps=2)
+    vae2 = _stage2_vae().cuda()
+    t2, _, e2 = s2.make_steps(vae2, "normalized_mae_per_channel", s1.AccumAdam(vae2, 1e-4),
+                              5.0, 50.0, accum_steps=2)
+    b1 = {"velocity": batch["velocity_3d"], "microstructure": batch["mask_3d"]}
+    for fn, want in ((lambda: t1(b1, 1e-3, True, noise=noise.cuda()), 0),
+                     (lambda: e1(b1, 1e-3, noise=noise.cuda()), 26),
+                     (lambda: t2(batch, False), 13), (lambda: e2(batch), 52)):
+        before = (k1.LAUNCHES, k2.LAUNCHES)
+        metrics = fn()
+        torch.cuda.synchronize()
+        assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]) == (want, 0)
+        assert not bool(metrics["bad"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2])
+def test_vae_microbatch_gradients_on_the_card_match_the_cpu(no_tf32, stage):
+    import copy
+
+    from diffusion_model_project_tpu_torch.models.layers import train_trace
+    from diffusion_model_project_tpu_torch.training import train_vae_stage1 as s1
+    from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
+
+    if stage == 1:
+        cpu = s1.Stage1VAE(3, 4, features=(32, 32, 32))
+        cpu.init_parameters_(torch.Generator().manual_seed(10))
+    else:
+        cpu = _stage2_vae()
+    card = copy.deepcopy(cpu).cuda()
+    batch, noise = _vae_batch()
+    grads = []
+    for vae, d in ((cpu, "cpu"), (card, "cuda")):
+        b = {k: v.to(d) for k, v in batch.items()}
+        with train_trace():
+            if stage == 1:
+                loss, _ = s1.make_loss_fn(vae, "normalized_mae_per_channel")(
+                    {"velocity": b["velocity_3d"], "microstructure": b["mask_3d"]}, 1e-3,
+                    noise=noise.to(d))
+            else:
+                loss, _ = s2.make_loss_fn(vae, "normalized_mae_per_channel", 5.0, 50.0)(b)
+            g = torch.autograd.grad(loss, [p for p in vae.parameters() if p.requires_grad])
+        grads.append(torch.cat([x.reshape(-1).cpu() for x in g]))
+    assert _rel_err(grads[1], grads[0]) <= 1e-3

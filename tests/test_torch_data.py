@@ -17,6 +17,8 @@ from diffusion_model_project_tpu.data import dataset as jdataset
 
 from diffusion_model_project_tpu_torch.data import dataset
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 N, S, H, W = 10, 3, 8, 8
 
 

@@ -33,6 +33,7 @@ from diffusion_model_project_tpu_torch.scripts import eval_testset_end2end as po
 
 from test_torch_data import write_dataset
 from test_torch_predictor import HW, LATENT, NORM_OUTPUT, S, UNET_KW, VAE_FEATURES
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 REPO = osp.abspath(osp.join(osp.dirname(__file__), ".."))
 T = 50

@@ -30,6 +30,7 @@ from diffusion_model_project_tpu_torch.training.steps import make_diffusion_eval
 from test_torch_data import write_dataset
 from test_torch_predictor import (HW, LATENT, NORM_OUTPUT, S, T, UNET_KW, VAE_FEATURES,
                                   _port_predictor, jax_predictor)  # noqa: F401 (fixture)
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 COST = "normalized_mse_loss_per_component"
 # one compile each (the JAX predictor is a pytree)

@@ -12,6 +12,8 @@ import sys
 import pytest
 import torch
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "diffusion_model_project_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "diffusion_model_project_tpu"}
@@ -41,7 +43,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "scripts/eval_testset_end2end.py", "losses/metrics.py", "losses/eval_metrics.py",
             "training/helper.py", "training/steps.py", "utils/vae_config.py",
             "train.py", "training/train_diffusion.py", "losses/physics.py",
-            "utils/async_ckpt.py", "utils/preempt.py", "utils/tb.py", "utils/config.py"} <= names
+            "utils/async_ckpt.py", "utils/preempt.py", "utils/tb.py", "utils/config.py",
+            "train_3d_vae_only.py", "train_2d_with_cross.py", "training/accum.py",
+            "training/train_vae_stage1.py", "training/train_vae_stage2.py", "data/split.py",
+            "data/statistics.py", "scripts/generate_statistics.py",
+            "scripts/data_split.py"} <= names
     offenders = {str(f.relative_to(REPO)): sorted(set(_imported_top_levels(f)) & FORBIDDEN)
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}
@@ -106,6 +112,10 @@ def test_import_chain_leaves_jax_unloaded():
             "import diffusion_model_project_tpu_torch.train\n"
             "import diffusion_model_project_tpu_torch.training.train_diffusion\n"
             "import diffusion_model_project_tpu_torch.utils.async_ckpt\n"
+            "import diffusion_model_project_tpu_torch.train_3d_vae_only\n"
+            "import diffusion_model_project_tpu_torch.train_2d_with_cross\n"
+            "import diffusion_model_project_tpu_torch.scripts.generate_statistics\n"
+            "import diffusion_model_project_tpu_torch.scripts.data_split\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'msgpack', 'diffusion_model_project_tpu'))\n"
             "assert not bad, bad\n")
@@ -152,3 +162,17 @@ def test_run_dir_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     assert inference.parse_args(["--model-dir", str(tmp_path)]).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         inference.run(["--model-dir", str(tmp_path), "--input-file", str(np_file)])
+
+
+def test_vae_training_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    from diffusion_model_project_tpu_torch.training import train_vae_stage1, train_vae_stage2
+
+    s1 = ["--dataset-dir", str(tmp_path)]
+    s2 = [*s1, "--stage1-checkpoint", str(tmp_path)]
+    assert train_vae_stage1.parse_args(s1).device == "cuda"
+    assert train_vae_stage2.parse_args(s2).device == "cuda"
+    for main, argv in ((train_vae_stage1.main, s1), (train_vae_stage2.main, s2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)

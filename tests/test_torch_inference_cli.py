@@ -21,6 +21,7 @@ from diffusion_model_project_tpu_torch.utils.checkpoint import predictor_from_di
 
 from test_torch_data import write_dataset
 from test_torch_predictor import HW, LATENT, NORM_OUTPUT, S, UNET_KW, VAE_FEATURES
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 STEPS = 3
 T = 20

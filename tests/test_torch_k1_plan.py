@@ -19,6 +19,8 @@ from diffusion_model_project_tpu_torch.ops.cuda import _sm90
 from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 from diffusion_model_project_tpu_torch.scripts import k1_device_time as pairs_mod
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 CASES = [(shape, groups, mc) for batch in (2, 8) for shape, groups, _, _ in pairs_mod.pairs(batch)
          for mc in (16, 8)]
 ids = [f"{'x'.join(map(str, s))}-G{g}-mc{mc}" for s, g, mc in CASES]

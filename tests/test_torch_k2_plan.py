@@ -14,6 +14,8 @@ from diffusion_model_project_tpu_torch.ops.cuda import _lib
 from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
 from diffusion_model_project_tpu_torch.utils.config import PUBLISHED_UNET_KWARGS
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 LATENT_HW = 64  # 256^2 slices, VAE latent at a quarter of the side
 
 

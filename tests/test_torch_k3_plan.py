@@ -12,6 +12,8 @@ from diffusion_model_project_tpu_torch.ops.cuda import _sm90
 from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
 from diffusion_model_project_tpu_torch.scripts import perf_probe_conv as probe
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 SHAPES = [(n, *shape[1:]) for shape in probe.STAGES.values() for n in (44, 88)]
 
 

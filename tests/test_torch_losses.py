@@ -18,6 +18,8 @@ from diffusion_model_project_tpu.losses import metrics as jm
 
 from diffusion_model_project_tpu_torch.losses import eval_metrics, metrics
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-7
 SHAPES = {"4d": (3, 4, 6, 7), "5d": (2, 3, 4, 5, 6)}
 

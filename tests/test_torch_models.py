@@ -19,6 +19,8 @@ from diffusion_model_project_tpu_torch.models.unet import UNet
 from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
 from diffusion_model_project_tpu_torch.utils import weights
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 
 def _np_tree(params):
     return jax.tree_util.tree_map(lambda a: np.array(a, dtype=np.float32), params)

@@ -26,6 +26,8 @@ from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 from diffusion_model_project_tpu_torch.ops.distance import distance_transform_edt as t_edt
 from diffusion_model_project_tpu_torch.ops.normalizer import MaxNormalizer as TMaxNormalizer
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 
 def _cf(x_cl: np.ndarray) -> torch.Tensor:
     """channels-last numpy -> channels-first torch."""

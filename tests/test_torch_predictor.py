@@ -25,6 +25,7 @@ from diffusion_model_project_tpu_torch.diffusion.scheduler import (
 from diffusion_model_project_tpu_torch.utils import weights
 
 from test_torch_models import randomize_zero_inits
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 LATENT, S, HW, T = 4, 3, 32, 1000
 UNET_KW = dict(in_channels=2 * LATENT + 1, out_channels=LATENT, features=(16, 32, 64),

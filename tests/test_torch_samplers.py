@@ -25,6 +25,7 @@ from diffusion_model_project_tpu_torch.utils import weights
 
 from test_torch_predictor import LATENT, NORM_OUTPUT, S, HW, UNET_KW, VAE_FEATURES
 from test_torch_predictor import jax_predictor  # noqa: F401  (module fixture)
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 B = 1
 LH = HW // 4

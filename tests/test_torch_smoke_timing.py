@@ -11,6 +11,8 @@ import pathlib
 
 import pytest
 
+from test_torch_train_step import one_torch_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SPIN = "at::cuda::spin_kernel(long)"  # the sentinel, as the trace names it
 

@@ -39,6 +39,7 @@ from diffusion_model_project_tpu_torch.utils import weights
 from test_torch_checkpoint import write_vae_dir
 from test_torch_data import write_dataset
 from test_torch_predictor import LATENT, NORM_OUTPUT, S, VAE_FEATURES
+from test_torch_train_step import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 REPO = osp.abspath(osp.join(osp.dirname(__file__), ".."))
