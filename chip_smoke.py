@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 12, 14, 11, 13, 15, 6, 7 (the conv probe's
+Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 12, 14, 16, 11, 13, 15, 17, 6, 7 (the conv probe's
 device times are read before phase 3 profiles a UNet forward; see
 device_kernels); any failure raises and the script exits non-zero without
 printing a result line:
@@ -42,7 +42,8 @@ printing a result line:
   7. the kernel table as one JSON line (phase 9's numbers under each
      kernel's "cli", phase 11's under its "evaluation", phase 13's and the
      training paths' launches under its "training", phase 15's and the VAE
-     training paths' launches under its "vae_training"), then the result line;
+     training paths' launches under its "vae_training", phase 17's and the
+     serving paths' launches under its "serving"), then the result line;
   8. entry point: a run dir in the reference layout (log.json naming a VAE
      dir, the dataset, evaluate's batch 2 and cost; best_model.pt of a
      seeded published-width predictor, float32; vae.pt with dual_full keys
@@ -110,7 +111,35 @@ printing a result line:
      under torch.profiler, its device time by kind of kernel; then the
      kernels' inputs of each path, recorded by a global hook;
  15. VAE kernels: phase 4 at the pairs of phase 14 that no earlier phase
-     held, and K1's device time a batch of each VAE path.
+     held, and K1's device time a batch of each VAE path;
+ 16. serving: on phase 8's run dir, 256^2 x 11: (a) InferenceServer with the
+     ladder (1, 8), DDIM-50, bf16 (the serve CLI's default), warmed up under
+     a global hook recording the kernels' inputs at B=1 and B=8, then with
+     the launch counters set to 0 one lone request and 16 concurrent ones
+     from 8 client threads through build_http_server (npz float32 and MFR1
+     raw in turn, a seed each): each result finite, (11, 3, 256, 256) and 0
+     where the mask is; K1 = 1,926 and K2 = 300 a dispatch, K3 0;
+     volumes/s, p50 / p99 latency, batches, padded slots, peak memory in
+     the burst; (b) the same at DPM-10 (406 / 60 a dispatch); (c) float32,
+     TF32 off, DDIM-10: a request alone, inside a batch of 8 and padded to
+     8, each within 1e-4 of the direct predict_ddim on its latents; (d) the
+     serve CLI as a process: one request, SIGTERM, exit 0 with its final
+     stats; (e) export_sampler DDIM-5 at B=1, float32, then load_sampler:
+     within 1e-5 of the eager predictor, 216 K1 and 30 K2 launches, export
+     seconds, archive bytes, both timed; (g) a DDIM-50 request at B=1, bf16,
+     through the wrappers and through the registered ops; (h) one B=8
+     DDIM-50 dispatch under torch.profiler, its device time by kind of
+     kernel against its wall time; (i) the server's pipeline at B=8: one
+     batch's host work (inputs staged, the sampler's kernels and the
+     result's copy queued) under torch.cuda.set_sync_debug_mode("error"), so
+     any call on it that waits for the device raises; then two bursts of 16
+     requests with a device sleep ahead of each batch's sampler: a batch
+     must be queued while the one before it is still on the device (the
+     server's queued_while_busy); (f) one train CLI
+     epoch with --profile-dir writes a trace with CUDA kernels, and
+     --debug-nans on data carrying a NaN raises naming a module;
+ 17. serve kernels: phase 4 at the pairs of phase 16 that no earlier phase
+     held (UNet N=88 and VAE B=8, bf16).
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -1940,7 +1969,8 @@ def phase_vae_training(smi: str, data_dir: str, root: str, written_pred) -> dict
     from diffusion_model_project_tpu_torch.training import train_vae_stage1 as s1
     from diffusion_model_project_tpu_torch.training import train_vae_stage2 as s2
 
-    base = os.path.join(root, "vae")
+    # its own scratch dir: phase 8's VAE dir (root/vae) serves phase 16 after it
+    base = os.path.join(root, "vae_training")
     res = {}
     t_phase = time.perf_counter()
 
@@ -2150,6 +2180,551 @@ def vae_k1_device_ms(shapes_by_path: dict, rows: list) -> dict:
     return out
 
 
+# phase 16: the serving daemon, its CLI, the exported sampler and the train
+# CLI's observability flags, on phase 8's dirs
+SERVE_LADDER = (1, 8)
+SERVE_CLIENTS, SERVE_BURST = 8, 16      # client threads, concurrent requests
+SERVE_SAMPLERS = (("ddim", 50), ("dpm", 10))
+SERVE_F32_STEPS = 10                    # (c): batch-invariance check, float32
+SERVE_F32_TOL = 1e-4                    # (c): relative to max|direct|
+EXPORT_STEPS, EXPORT_TOL = 5, 1e-5      # (e): DDIM-5, B=1, float32, relative
+OP_ROUNDS = 6                           # (g): requests a route, interleaved
+PIPE_STEPS, PIPE_SLEEP_MS = 5, 500.0    # (i): DDIM-5 at B=8, a device sleep ahead of each batch
+
+
+def _nearest_rank(ms: list, q: float) -> float:
+    ms = sorted(ms)
+    return ms[max(0, math.ceil(q * len(ms)) - 1)]
+
+
+def _check_served(out, img, label: str) -> None:
+    import numpy as np
+
+    if out.shape != (S, 3, HW, HW) or not np.isfinite(out).all():
+        raise RuntimeError(f"[serving] {label}: bad output {out.shape}")
+    if np.abs(out[np.broadcast_to(img == 0, out.shape)]).max(initial=0.0) != 0.0:
+        raise RuntimeError(f"[serving] {label}: nonzero velocity where the mask is 0")
+
+
+def serve_http(server, payloads: list, smi: str, label: str, per_dispatch: dict) -> dict:
+    """1 lone request, then SERVE_BURST concurrent ones from SERVE_CLIENTS
+    client threads, through ``build_http_server``: npz float32 for even
+    indices, MFR1 raw for odd ones, each with its own seed. Every result is
+    checked; the launch counters, set to 0 before, must equal
+    ``per_dispatch`` times the batches."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.utils.serving import (
+        build_http_server, decode_raw_response, encode_raw_request)
+
+    httpd = build_http_server(server, host="127.0.0.1", port=0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    bodies = []
+    for i, (img, v2d) in enumerate(payloads):
+        if i % 2:
+            bodies.append(encode_raw_request(img, v2d, seed=i))
+        else:
+            buf = io.BytesIO()
+            np.savez(buf, img=img, v2d=v2d, seed=i)
+            bodies.append(buf.getvalue())
+
+    def post(i):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/predict", data=bodies[i])
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            body = resp.read()
+        out = decode_raw_response(body) if i % 2 else np.load(io.BytesIO(body))["velocity"]
+        _check_served(out, payloads[i][0], f"{label} request {i}")
+        return time.perf_counter() - t0
+
+    try:
+        _zero_launches()
+        before = server.stats()
+        lone_ms = post(0) * 1e3
+        mid = server.stats()
+        torch.cuda.reset_peak_memory_stats()
+        lat, errors, lock = {}, [], threading.Lock()
+        todo = iter(range(1, 1 + SERVE_BURST))
+
+        def client():
+            while True:
+                with lock:
+                    i = next(todo, None)
+                if i is None:
+                    return
+                try:
+                    ms = post(i) * 1e3
+                except Exception as e:  # noqa: BLE001 (re-raised below)
+                    errors.append(e)
+                    return
+                with lock:
+                    lat[i] = ms
+
+        threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        peak = torch.cuda.max_memory_allocated()
+        after = server.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launches = _launches()
+    batches = after["batches"] - before["batches"]
+    expected = {"groupnorm_act": per_dispatch["groupnorm_act"] * batches,
+                "fused_attention": per_dispatch["fused_attention"] * batches, "conv3x3": 0}
+    ms = list(lat.values())
+    by_payload = {name: {"p50_ms": _nearest_rank(v, 0.5), "p99_ms": _nearest_rank(v, 0.99)}
+                  for name, v in (("npz_f32", [lat[i] for i in lat if i % 2 == 0]),
+                                  ("mfr1_raw", [lat[i] for i in lat if i % 2]))}
+    res = {"lone_ms": lone_ms, "lone_batches": mid["batches"] - before["batches"],
+           "burst_requests": SERVE_BURST, "burst_s": wall, "volumes_per_s": SERVE_BURST / wall,
+           "p50_ms": _nearest_rank(ms, 0.5), "p99_ms": _nearest_rank(ms, 0.99),
+           "by_payload": by_payload, "batches": batches,
+           "burst_batches": after["batches"] - mid["batches"],
+           "padded_slots": after["padded_slots"] - before["padded_slots"],
+           "peak_bytes_burst": peak, "launches": launches, "expected": expected,
+           "server_batch_ms": after.get("batch_ms"),
+           "queued_while_busy": after["queued_while_busy"] - before["queued_while_busy"]}
+    log(f"[serving] {label}: lone request {lone_ms:.1f} ms ({res['lone_batches']} batch at "
+        f"B=1); {SERVE_BURST} concurrent requests from {SERVE_CLIENTS} clients in {wall:.3f} s: "
+        f"{res['volumes_per_s']:.3f} volumes/s, latency p50 {res['p50_ms']:.1f} ms p99 "
+        f"{res['p99_ms']:.1f} ms (" + ", ".join(
+            f"{k} p50 {v['p50_ms']:.1f} p99 {v['p99_ms']:.1f}" for k, v in by_payload.items())
+        + f"); {batches} batches ({res['burst_batches']} in the burst, "
+        f"{res['queued_while_busy']} queued while the one before was on the device), "
+        f"{res['padded_slots']} padded slots; peak memory in the burst "
+        f"{peak / 2**30:.2f} GiB; batch ms {after.get('batch_ms')} | {smi}")
+    log(f"[serving] {label}: launches {launches} (expected {expected})")
+    if launches != expected:
+        raise RuntimeError(f"[serving] {label} did not go through the kernels as expected: "
+                           f"{launches} against {expected}")
+    return res
+
+
+def serve_f32_invariance(pred, smi: str) -> dict:
+    """(c) float32, TF32 off: one request served alone (B=1), one inside a
+    batch of 8 and one padded to 8, each against the direct predict_ddim on
+    the request's own latents."""
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.scripts.perf_serve_daemon import volume
+    from diffusion_model_project_tpu_torch.utils.serving import InferenceServer, request_noise
+
+    ld = S // pred.vae_depth_factor
+    shape = (ld, pred.latent_channels, HW // 4, HW // 4)
+
+    def direct(img, v2d, seed):
+        out = pred.predict_ddim(torch.from_numpy(img[None]).cuda(),
+                                torch.from_numpy(v2d[None]).cuda(), num_steps=SERVE_F32_STEPS,
+                                noise=request_noise(seed, shape)[None].cuda())
+        return out[0].cpu().numpy()
+
+    vols = [volume(i, 7000) for i in range(8)]
+    res = {}
+    with InferenceServer(pred, num_steps=SERVE_F32_STEPS, batch_sizes=SERVE_LADDER,
+                         max_wait_ms=500.0, expected_shape=(S, HW, HW)) as server:
+        got = {"alone": (server.predict(*vols[0], seed=0), 0)}
+        futs = [server.submit(img, v2d, seed=i) for i, (img, v2d) in enumerate(vols)]
+        outs = [f.result() for f in futs]
+        st = server.stats()
+        if st["batches"] != 2 or st["padded_slots"] != 0:
+            raise RuntimeError(f"[serving] (c): 8 requests did not form one batch of 8: {st}")
+        got["batch_of_8"] = (outs[5], 5)
+    with InferenceServer(pred, num_steps=SERVE_F32_STEPS, max_batch=8,
+                         max_wait_ms=1.0, expected_shape=(S, HW, HW)) as server:
+        got["padding"] = (server.predict(*vols[3], seed=3), 3)
+        if server.stats()["padded_slots"] != 7:
+            raise RuntimeError(f"[serving] (c): the lone request was not padded to 8")
+    for case, (out, i) in got.items():
+        want = direct(*vols[i], i)
+        rel = float(np.abs(out - want).max() / np.abs(want).max())
+        res[case] = {"seed": i, "rel_err": rel}
+        if not rel <= SERVE_F32_TOL:
+            raise RuntimeError(f"[serving] (c) {case}: {rel:.3e} from the direct call")
+    log(f"[serving] (c) float32 DDIM-{SERVE_F32_STEPS}, TF32 off: against the direct "
+        f"predict_ddim on the same latents: " + ", ".join(
+            f"{k} {v['rel_err']:.3e}" for k, v in res.items()) + f" (tol {SERVE_F32_TOL}) | {smi}")
+    return res
+
+
+def _read_lines(proc, out: list, ready, marker: str) -> None:
+    for line in proc.stdout:
+        out.append(line)
+        if line.startswith(marker):
+            ready.set()
+    ready.set()
+
+
+def serve_cli_sigterm(run_dir: str, smi: str) -> dict:
+    """(d) the serve CLI as a process on a free port: one request, SIGTERM,
+    exit 0 with its final stats."""
+    import io
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.scripts.perf_serve_daemon import volume
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "diffusion_model_project_tpu_torch.scripts.serve",
+         "--model-dir", run_dir, "--port", "0", "--batch-sizes", "1", "--steps", "10"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, ready = [], threading.Event()
+    reader = threading.Thread(target=_read_lines, args=(proc, lines, ready, "serving "),
+                              daemon=True)
+    reader.start()
+    try:
+        if not ready.wait(300) or not lines or not lines[-1].startswith("serving "):
+            raise RuntimeError("[serving] (d) the serve CLI did not come up:\n" + "".join(lines))
+        start_s = time.perf_counter() - t0
+        port = int(lines[-1].split("http://127.0.0.1:")[1].split()[0])
+        img, v2d = volume(0, 9000)
+        buf = io.BytesIO()
+        np.savez(buf, img=img, v2d=v2d, seed=3)
+        t1 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/predict", data=buf.getvalue())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            out = np.load(io.BytesIO(resp.read()))["velocity"]
+        request_ms = (time.perf_counter() - t1) * 1e3
+        _check_served(out, img, "(d) the serve CLI")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    text = "".join(lines)
+    stats = [ln for ln in lines if "final stats" in ln]
+    log(f"[serving] (d) serve CLI: up in {start_s:.1f} s (process start, load, warm-up), one "
+        f"request {request_ms:.1f} ms, SIGTERM -> exit {code}; {stats[-1].strip() if stats else ''}")
+    if code != 0 or not stats or "'requests': 1" not in stats[-1]:
+        raise RuntimeError(f"[serving] (d) the serve CLI did not stop cleanly (exit {code}):\n"
+                           + text[-4000:])
+    return {"start_s": start_s, "request_ms": request_ms, "exit_code": code,
+            "final_stats": stats[-1].strip()}
+
+
+def serve_export(pred, smi: str) -> dict:
+    """(e) DDIM-EXPORT_STEPS at B=1, float32, TF32 off: export_sampler, then
+    load_sampler; the loaded program against the eager predictor on the same
+    inputs and noise, its launches, and both timed."""
+    from diffusion_model_project_tpu_torch.utils.export import export_sampler, load_sampler
+
+    img, vel, noise = make_inputs(1, S, HW, seed=11)
+    img, vel, noise = img.cuda(), vel.cuda(), noise.cuda()
+    t0 = time.perf_counter()
+    blob = export_sampler(pred, batch=1, num_steps=EXPORT_STEPS, image_hw=(HW, HW), num_slices=S)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f = load_sampler(blob)
+    load_s = time.perf_counter() - t0
+    nbytes = len(blob)
+    del blob
+    _zero_launches()
+    got = f(img, vel, noise)
+    torch.cuda.synchronize()
+    launches = _launches()
+    evals = EXPORT_STEPS
+    expected = {"groupnorm_act": 38 * evals + 26, "fused_attention": 6 * evals, "conv3x3": 0}
+    want = pred.predict_ddim(img, vel, num_steps=EXPORT_STEPS, noise=noise)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    times = {"exported": [], "eager": []}
+    for route in ("exported", "eager", "eager", "exported", "exported", "eager"):
+        fn = f if route == "exported" else (
+            lambda i, v, n: pred.predict_ddim(i, v, num_steps=EXPORT_STEPS, noise=n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(img, vel, noise)
+        torch.cuda.synchronize()
+        times[route].append((time.perf_counter() - t0) * 1e3)
+    res = {"steps": EXPORT_STEPS, "export_s": export_s, "load_s": load_s, "archive_bytes": nbytes,
+           "launches": launches, "expected": expected, "rel_err": rel, "request_ms": times}
+    log(f"[serving] (e) export_sampler DDIM-{EXPORT_STEPS}, B=1, float32: {export_s:.1f} s, "
+        f"archive {nbytes} bytes; load_sampler {load_s:.1f} s; launches {launches} (expected "
+        f"{expected}); against the eager predictor {rel:.3e} (tol {EXPORT_TOL}); request ms "
+        f"exported {', '.join(f'{t:.1f}' for t in times['exported'])}, eager "
+        f"{', '.join(f'{t:.1f}' for t in times['eager'])} | {smi}")
+    if launches != expected:
+        raise RuntimeError(f"[serving] (e) the exported program did not run the kernels: "
+                           f"{launches} against {expected}")
+    if not rel <= EXPORT_TOL:
+        raise RuntimeError(f"[serving] (e) the exported program differs by {rel:.3e}")
+    return res
+
+
+def serve_observability(data_dir: str, vae_dir: str, root: str, smi: str) -> dict:
+    """(f) one train CLI epoch with --profile-dir writes a trace; --debug-nans
+    on a copy of the dataset whose 3D velocity carries a NaN raises, naming
+    a module."""
+    from diffusion_model_project_tpu_torch import train as train_cli
+    from diffusion_model_project_tpu_torch.utils.profiling import enable_nan_debugging
+
+    trace_dir = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    train_cli.main(train_argv(data_dir, vae_dir, os.path.join(root, "runs_profiled"),
+                              "--num-epochs", "1", "--profile-dir", trace_dir))
+    profiled_s = time.perf_counter() - t0
+    traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)
+              if n.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise RuntimeError(f"[serving] (f) --profile-dir wrote {os.listdir(trace_dir)}")
+    with open(traces[0], "rb") as fh:
+        text = fh.read()
+    kernels = text.count(b'"cat": "kernel"') + text.count(b'"cat":"kernel"')
+    if not kernels:
+        raise RuntimeError("[serving] (f) the trace holds no CUDA kernel")
+    nan_data = os.path.join(root, "nan_data")
+    shutil.copytree(data_dir, nan_data)
+    u = torch.load(os.path.join(nan_data, "x", "U.pt"))
+    u[:, 0, 0, 0, 0] = float("nan")
+    torch.save(u, os.path.join(nan_data, "x", "U.pt"))
+    message = None
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(train_argv(nan_data, vae_dir, os.path.join(root, "runs_nan"),
+                                  "--num-epochs", "1", "--debug-nans", "true"))
+    except FloatingPointError as e:
+        message = str(e)
+    finally:
+        enable_nan_debugging(False)
+    nan_s = time.perf_counter() - t0
+    res = {"profiled_epoch_s": profiled_s, "trace_bytes": len(text), "trace_kernels": kernels,
+           "debug_nans_error": message, "debug_nans_s": nan_s}
+    log(f"[serving] (f) train CLI, 1 epoch with --profile-dir: {profiled_s:.1f} s, trace "
+        f"{len(text)} bytes with {kernels} CUDA kernel events; --debug-nans on data with a "
+        f"NaN: {message!r} after {nan_s:.1f} s | {smi}")
+    if not message or "module" not in message:
+        raise RuntimeError("[serving] (f) --debug-nans did not stop at a module")
+    return res
+
+
+def serve_op_overhead(pred, smi: str) -> dict:
+    """(g) a DDIM-50 request at B=1, bf16, with the layers calling K1 and K2
+    through their wrappers (the eager path) and through the registered ops
+    (``torch.ops.dm_port.*``), interleaved, each route's first request
+    untimed; both launch the kernels."""
+    from diffusion_model_project_tpu_torch.models import layers
+
+    img, vel, noise = make_inputs(1, S, HW, seed=12)
+    img, vel, noise = img.cuda(), vel.cuda(), noise.cuda()
+    wrappers = (layers.groupnorm_act, layers.fused_attention)
+    ops = (lambda x, w, b, g, act="", eps=1e-5: torch.ops.dm_port.groupnorm_act(x, w, b, g, act,
+                                                                                 eps),
+           torch.ops.dm_port.fused_attention)
+    times = {"wrapper": [], "op": []}
+    launches = {}
+    try:
+        for route in ["op", "wrapper"] + ["wrapper", "op", "op", "wrapper"] * (OP_ROUNDS // 2):
+            layers.groupnorm_act, layers.fused_attention = \
+                wrappers if route == "wrapper" else ops
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict_ddim(img, vel, num_steps=STEPS, noise=noise)
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+            launches[route] = _launches()
+    finally:
+        layers.groupnorm_act, layers.fused_attention = wrappers
+    times = {k: v[1:] for k, v in times.items()}  # each route's first request warms it
+    # the median: a host-bound request's time has outliers of +50%
+    median = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    res = {"request_ms": times, "median_ms": median, "launches": launches,
+           "overhead": median["op"] / median["wrapper"] - 1.0}
+    log(f"[serving] (g) DDIM-{STEPS} request, B=1, bf16: through the wrappers "
+        f"{', '.join(f'{t:.1f}' for t in times['wrapper'])} ms (median "
+        f"{median['wrapper']:.1f}), through the registered ops "
+        f"{', '.join(f'{t:.1f}' for t in times['op'])} ms (median {median['op']:.1f}): "
+        f"{res['overhead'] * 100:+.2f}%; launches {launches} | {smi}")
+    expected = {"groupnorm_act": 1926, "fused_attention": 300, "conv3x3": 0}
+    if any(v != expected for v in launches.values()):
+        raise RuntimeError(f"[serving] (g) launches {launches} against {expected}")
+    return res
+
+
+def serve_batch_profile(pred, smi: str) -> dict:
+    """(h) where a B=8 DDIM-50 dispatch's time goes: one predict_ddim at B=8,
+    bf16, under torch.profiler (after SENTINELS sentinel kernels), its
+    device time by kind of kernel against its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_project_tpu_torch.scripts.train_step_time import kind
+
+    b = SERVE_LADDER[-1]
+    img, vel, noise = make_inputs(b, S, HW, seed=13)
+    img, vel, noise = img.cuda(), vel.cuda(), noise.cuda()
+    pred.predict_ddim(img, vel, num_steps=STEPS, noise=noise)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.predict_ddim(img, vel, num_steps=STEPS, noise=noise)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        pred.predict_ddim(img, vel, num_steps=STEPS, noise=noise)
+        torch.cuda.synchronize()
+    by_kind = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and SENTINEL not in e.name:
+            k = "k1" if is_k1_kernel(e.name) else "k2" if is_k2_kernel(e.name) else kind(e.name)
+            by_kind[k] += (e.time_range.end - e.time_range.start) / 1e3
+    device = sum(by_kind.values())
+    res = {"batch": b, "wall_ms": wall_ms, "device_ms": device,
+           "busy_share": device / wall_ms, "device_ms_by_kind": dict(by_kind)}
+    log(f"[serving] (h) one DDIM-{STEPS} dispatch at B={b}, bf16: {wall_ms:.1f} ms wall, "
+        f"{device:.1f} ms on the device (busy {device / wall_ms:.3f}); by kind (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in by_kind.most_common()) + f" | {smi}")
+    return res
+
+
+def serve_pipeline(pred, smi: str) -> dict:
+    """(i) the server's two-stage pipeline on the card, bf16 DDIM-PIPE_STEPS
+    at B=8. One batch's host work (its inputs staged, the sampler's kernels
+    and the result's copy queued) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call on it that waits for
+    the device (a copy from pageable memory, a read of a device value)
+    raises. Then two bursts of 16 requests, each batch's sampler call
+    preceded on the stream by a PIPE_SLEEP_MS device sleep, so a batch is
+    still on the device when the next one is queued unless queuing waits
+    for it: the second burst's second batch must count as queued while the
+    first was busy (the first burst also warms the pinned host buffers)."""
+    from diffusion_model_project_tpu_torch.scripts.perf_serve_daemon import volume
+    from diffusion_model_project_tpu_torch.utils.serving import InferenceServer, request_noise
+
+    b = SERVE_LADDER[-1]
+    vols = [volume(i, 9000) for i in range(2 * b)]
+    shape = (S // pred.vae_depth_factor, pred.latent_channels, HW // 4, HW // 4)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(10 ** 8)
+    e1.record()
+    e1.synchronize()
+    cycles = int(10 ** 8 * PIPE_SLEEP_MS / e0.elapsed_time(e1))
+    with InferenceServer(pred, num_steps=PIPE_STEPS, max_batch=b, max_wait_ms=200.0,
+                         expected_shape=(S, HW, HW)) as server:
+        server.warmup()
+        with torch.inference_mode():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img = server._stage([v[0] for v in vols[:b]])
+                v2d = server._stage([v[1] for v in vols[:b]])
+                noise = server._stage([request_noise(i, shape).numpy() for i in range(b)])
+                _, done = server._copy_out(server._fn(pred, img, v2d, noise))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        done.synchronize()
+        fn = server._fn
+
+        def slowed(*args):
+            torch.cuda._sleep(cycles)
+            return fn(*args)
+
+        server._fn = slowed
+        counts, walls = [], []
+        for _ in range(2):
+            before = server.stats()
+            t0 = time.perf_counter()
+            futs = [server.submit(img, v2d, seed=i) for i, (img, v2d) in enumerate(vols)]
+            for f, (img, _) in zip(futs, vols):
+                _check_served(f.result(), img, "(i)")
+            walls.append(time.perf_counter() - t0)
+            after = server.stats()
+            counts.append(after["queued_while_busy"] - before["queued_while_busy"])
+        st = server.stats()
+    res = {"steps": PIPE_STEPS, "batch": b, "sleep_ms": PIPE_SLEEP_MS, "sleep_cycles": cycles,
+           "queued_while_busy": counts, "burst_s": walls, "batches": st["batches"],
+           "padded_slots": st["padded_slots"]}
+    log(f"[serving] (i) pipeline, DDIM-{PIPE_STEPS} at B={b}, bf16: one batch's host work "
+        f"made no synchronizing call; with {PIPE_SLEEP_MS:.0f} ms of device sleep ahead of "
+        f"each batch, bursts of {2 * b} requests took "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, batches queued while the one before "
+        f"was on the device {counts}; {st['batches']} batches, {st['padded_slots']} padded "
+        f"slots | {smi}")
+    if st["batches"] != 4 or st["padded_slots"] != 0:
+        raise RuntimeError(f"[serving] (i) the bursts did not form 4 batches of {b}: {st}")
+    if counts[1] < 1:
+        raise RuntimeError("[serving] (i) the batcher waited for the previous batch before "
+                           f"queuing the next: queued_while_busy {counts}")
+    return res
+
+
+def phase_serving(smi: str, run_dir: str, data_dir: str, vae_dir: str, root: str) -> dict:
+    """Phase 16 on phase 8's run dir at published width, 256^2 x 11."""
+    from diffusion_model_project_tpu_torch.scripts.perf_serve_daemon import volume
+    from diffusion_model_project_tpu_torch.utils.checkpoint import predictor_from_directory
+    from diffusion_model_project_tpu_torch.utils.serving import InferenceServer
+
+    t_phase = time.perf_counter()
+    pred, _ = predictor_from_directory(run_dir, device="cuda")
+    pred.compute_dtype = torch.bfloat16  # the serve CLI's default
+    payloads = [volume(i, 8000) for i in range(1 + SERVE_BURST)]
+    out = {"ladder": list(SERVE_LADDER)}
+    shapes = None
+    for sampler, steps in SERVE_SAMPLERS:
+        evals = dpm_evaluations(pred, steps) if sampler == "dpm" else steps
+        per_dispatch = {"groupnorm_act": 38 * evals + 26, "fused_attention": 6 * evals}
+        if expected_calls(pred, evals) != tuple(per_dispatch.values()):
+            raise RuntimeError(f"the run dir's GroupNorm / attention counts are "
+                               f"{expected_calls(pred, evals)}")
+        with InferenceServer(pred, sampler=sampler, num_steps=steps, batch_sizes=SERVE_LADDER,
+                             max_wait_ms=50.0, expected_shape=(S, HW, HW)) as server:
+            t0 = time.perf_counter()
+            if shapes is None:  # the kernels' inputs at B=1 and B=8, by a global hook
+                shapes, handles = record_shapes()
+                try:
+                    server.warmup()
+                finally:
+                    for h in handles:
+                        h.remove()
+            else:
+                server.warmup()
+            warm_s = time.perf_counter() - t0
+            label = f"(a) {sampler}-{steps}" if sampler == "ddim" else f"(b) {sampler}-{steps}"
+            r = serve_http(server, payloads, smi, label, per_dispatch)
+        out[f"{sampler}{steps}"] = {"per_dispatch": per_dispatch, "warmup_s": warm_s, **r}
+    out["pipeline"] = serve_pipeline(pred, smi)
+    pred.compute_dtype = torch.float32
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["f32_invariance"] = serve_f32_invariance(pred, smi)
+        out["export"] = serve_export(pred, smi)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    out["cli"] = serve_cli_sigterm(run_dir, smi)
+    pred.compute_dtype = torch.bfloat16
+    out["op_overhead"] = serve_op_overhead(pred, smi)
+    out["batch_profile"] = serve_batch_profile(pred, smi)
+    del pred
+    torch.cuda.empty_cache()
+    out["observability"] = serve_observability(data_dir, vae_dir, os.path.join(root, "observe"),
+                                               smi)
+    out["shapes"] = shapes
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serving] the kernels' inputs at B=1 and B=8: {len(shapes)} (shape, dtype) pairs; "
+        f"phase {out['seconds']:.1f} s")
+    return out
+
+
 def _totals(rs: list) -> dict:
     """A kernel's numbers a request from its rows: each shape's time times
     its calls a request, summed; the largest error."""
@@ -2165,7 +2740,8 @@ def _totals(rs: list) -> dict:
 
 def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_rows: list,
               eval_paths: list, train_rows: list, train_paths: list, vae_rows: list,
-              vae_paths: list, vae_k1: dict) -> list:
+              vae_paths: list, vae_k1: dict, serve_rows: list, serve_paths: list,
+              sv: dict) -> list:
     """One entry per kernel; times are per request of its path: one
     predict_ddim for K1 and K2, one call at each probe stage (the planner's
     tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
@@ -2177,7 +2753,9 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
     paths' pairs that no earlier phase held (the validation and test passes,
     and the train steps' frozen encodes), with the training paths' launches;
     ``vae_training`` likewise for the VAE trainers' paths, with K1's device
-    time a batch of each."""
+    time a batch of each; ``serving`` the serving paths' launches and a
+    dispatch's, and the kernels at the served pairs no earlier phase held
+    (calls a dispatch of the batch size that meets them)."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
                           "diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py:47"),
@@ -2218,6 +2796,14 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
             entry["vae_training"].update({"dtypes": sorted({r["dtype"] for r in vr}),
                                           "rel_err": max(r["rel_err"] for r in vr),
                                           "tol": max(r["tol"] for r in vr), **_totals(vr)})
+        sr = [r for r in serve_rows if r["kernel"] == name]
+        entry["serving"] = {"launches": {p: by_path[p][name] for p in serve_paths},
+                            "per_dispatch": {k: sv[k]["per_dispatch"].get(name, 0)
+                                             for k in ("ddim50", "dpm10")}}
+        if sr:
+            entry["serving"].update({"dtypes": sorted({r["dtype"] for r in sr}),
+                                     "rel_err": max(r["rel_err"] for r in sr),
+                                     "tol": max(r["tol"] for r in sr), **_totals(sr)})
         out.append(entry)
     return out
 
@@ -2260,6 +2846,7 @@ def main() -> int:
                               set(sl["shapes"]) | set(ep["shapes"]))
         tr = phase_training(device["nvidia_smi"], data_dir, vae_dir, written_pred, root)
         vt = phase_vae_training(device["nvidia_smi"], data_dir, root, written_pred)
+        sv = phase_serving(device["nvidia_smi"], run_dir, data_dir, vae_dir, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     mark = dict(PROFILER)
@@ -2294,6 +2881,17 @@ def main() -> int:
         tallies.append(tally("vae kernels", mark))
     vt["k1_device_ms"] = vae_k1_device_ms(vt["shapes_by_path"],
                                           rows + cli_rows + eval_rows + train_rows + vae_rows)
+    held |= set(vae_shapes)
+    sv["new_shapes"] = {k: v for k, v in sv["shapes"].items() if k not in held}
+    log(f"[serving] the kernels' inputs at B=1 and B=8: {len(sv['shapes'])} (shape, dtype) "
+        f"pairs, {len(sv['new_shapes'])} not held by an earlier phase: "
+        + ", ".join(f"{k[0]} {k[1]} {k[-1]}" for k in sorted(sv["new_shapes"], key=str)))
+    serve_rows, serve_k1_parts = [], {}
+    if sv["new_shapes"]:
+        mark = dict(PROFILER)
+        serve_rows, serve_k1_parts = phase_kernels(
+            sv["new_shapes"], {k[0]: 1 for k in sv["new_shapes"]}, tag="serve kernels")
+        tallies.append(tally("serve kernels", mark))
     cvc = phase_card_vs_cpu()
     eval_paths = {"evaluate": ev["evaluate"]["launches"],
                   **{f"eval_{k}": v["launches"] for k, v in ev["end2end"].items()},
@@ -2303,14 +2901,18 @@ def main() -> int:
                    "train_physics_eval_passes": tr["b"]["eval_launches"]}
     vae_paths = {f"vae_{stage}_{kind}": vt[run]["launches_by_step"][f"{stage}_{kind}"]
                  for stage, run in (("s1", "b"), ("s2", "d")) for kind in ("train", "eval")}
+    serve_paths = {"serve_ddim50": sv["ddim50"]["launches"], "serve_dpm10": sv["dpm10"]["launches"],
+                   f"serve_export_ddim{EXPORT_STEPS}": sv["export"]["launches"],
+                   "serve_ops_ddim50": sv["op_overhead"]["launches"]["op"]}
     by_path = {"ddim_slice": {**sl["launches"], "conv3x3": 0},
                "conv_probe": {"groupnorm_act": 0, "fused_attention": 0,
                               "conv3x3": conv_launches},
                **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}, **eval_paths,
-               **train_paths, **vae_paths}
+               **train_paths, **vae_paths, **serve_paths}
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches}, by_path,
                         cli_rows, eval_rows, sorted(eval_paths), train_rows, sorted(train_paths),
-                        vae_rows, sorted(vae_paths), vt["k1_device_ms"])
+                        vae_rows, sorted(vae_paths), vt["k1_device_ms"], serve_rows,
+                        sorted(serve_paths), sv)
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
@@ -2333,6 +2935,10 @@ def main() -> int:
             "new_shapes": [{"key": list(map(str, k)), "calls": v}
                            for k, v in vt["new_shapes"].items()]},
         "vae_kernel_rows": vae_rows, "vae_k1_request_ms": vae_k1_parts,
+        "serving": {**sv, **{key: [{"key": list(map(str, k)), "calls": v}
+                                   for k, v in sv[key].items()]
+                             for key in ("shapes", "new_shapes")}},
+        "serve_kernel_rows": serve_rows, "serve_k1_dispatch_ms": serve_k1_parts,
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

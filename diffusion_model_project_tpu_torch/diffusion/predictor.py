@@ -36,6 +36,10 @@ from .scheduler import DiffusionScheduler, ddim_timesteps, dpm_solver_coefficien
 CLIP = (-30.0, 30.0)  # the samplers' x0 clip (reference predictor.py:823-884)
 
 
+def _refresh_host_values(predictor, _incompatible_keys) -> None:
+    predictor._read_host_values()
+
+
 class LatentDiffusionPredictor(nn.Module):
     def __init__(self, model_kwargs: dict, *, num_timesteps: int = 1000,
                  distance_transform: bool = True, latent_channels: Optional[int] = None,
@@ -70,6 +74,8 @@ class LatentDiffusionPredictor(nn.Module):
         # GroupNorm statistics stay float32
         self.compute_dtype = compute_dtype
         self.to(device)
+        self._read_host_values()
+        self.register_load_state_dict_post_hook(_refresh_host_values)
 
     @classmethod
     def create(cls, model_kwargs: dict, *, seed: int = 0, device="cuda",
@@ -109,9 +115,29 @@ class LatentDiffusionPredictor(nn.Module):
 
     # ----------------------------------------------------------- conditioning
 
+    # Host values of the samplers. They are copied from the buffers when the
+    # buffers are set (here and by ``load_state_dict``), so a sampler call
+    # reads no device memory from the host: such a read would wait for every
+    # kernel queued before it. The exported program (``utils/export.py``)
+    # holds them as constants.
+
+    def _read_host_values(self) -> None:
+        self._host_values = {
+            "distance_transform": bool(self.distance_transform.item()),
+            "alphas_cumprod": self.scheduler.alphas_cumprod.detach().cpu().numpy()}
+
+    def uses_distance_transform(self) -> bool:
+        """The ``distance_transform`` flag, on the host."""
+        return self._host_values["distance_transform"]
+
+    def host_alphas_cumprod(self) -> np.ndarray:
+        """The scheduler's alpha-bar table on the host (DPM-Solver++'s
+        coefficients are computed from it there)."""
+        return self._host_values["alphas_cumprod"]
+
     def pre_process(self, img_flat: torch.Tensor) -> torch.Tensor:
         """EDT (if enabled) + input normalization of (N, 1, H, W) masks."""
-        if bool(self.distance_transform.item()):
+        if self.uses_distance_transform():
             img_flat = distance_transform_edt(img_flat[:, 0])[:, None]
         return self.normalizer["input"].normalize(img_flat, channel_axis=1)
 
@@ -256,7 +282,7 @@ class LatentDiffusionPredictor(nn.Module):
         # a repeated node (num_steps > T) would be a zero-width step: dedupe,
         # descending, which leaves the trajectory as it is
         ts = np.unique(ddim_timesteps(self.num_timesteps, num_steps))[::-1]
-        c = dpm_solver_coefficients(self.scheduler.alphas_cumprod, ts, order=order)
+        c = dpm_solver_coefficients(self.host_alphas_cumprod(), ts, order=order)
         prev_x0 = torch.zeros_like(x)
         for i, t in enumerate(c["t"]):
             eps = self._unet_eps(x, z_cond, m_cond, self._t(x, t))

@@ -150,7 +150,13 @@ class DiffusionScheduler(nn.Module):
                     clip_range: Tuple[float, float] = (-30.0, 30.0)):
         """One DDIM step from t to t_prev (t_prev < 0 means 'to x_0')."""
         alpha_bar_t = self._at("alphas_cumprod", t, x_t)
-        t_prev = torch.as_tensor(t_prev, device=x_t.device)
+        if isinstance(t_prev, int):
+            # a fill on the device, of shape (1,): a tensor copied from the
+            # host, or a table indexed with a 0-dim tensor (read back as a
+            # Python int), would wait for every kernel queued before it
+            t_prev = torch.full((1,), t_prev, dtype=torch.int64, device=x_t.device)
+        else:
+            t_prev = torch.as_tensor(t_prev, device=x_t.device)
         alpha_bar_prev = torch.where(
             _bcast(t_prev, x_t) >= 0,
             self._at("alphas_cumprod", torch.clamp(t_prev, min=0), x_t),

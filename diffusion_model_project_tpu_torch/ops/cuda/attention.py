@@ -34,7 +34,8 @@ GEMM_TILES = ((128, 128), (128, 64), (64, 64))
 GEMM_STAGES = 4
 CORE_MAX_STAGES = 4
 
-# wrapper calls that launched the kernels (not counting CPU calls)
+# wrapper calls that launched the kernels (not counting CPU calls), through the
+# registered op too
 LAUNCHES = 0
 
 
@@ -138,7 +139,13 @@ def _gemm_bias(x: int, m: int, k: int, w: torch.Tensor, b: torch.Tensor, y: int,
 def fused_attention(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
                     w_out: torch.Tensor, b_out: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Self-attention on ``(N, T, E)``; ``w_qkv (E, 3E)``, ``w_out (E, E)`` (JAX
-    layouts), biases in x's dtype."""
+    layouts), biases in x's dtype.
+
+    Under ``torch.export`` the call is traced as the
+    registered op ``torch.ops.dm_port.fused_attention``, whose body is this
+    function; eager calls skip the op's dispatcher."""
+    if torch.compiler.is_compiling():
+        return torch.ops.dm_port.fused_attention(x, w_qkv, b_qkv, w_out, b_out, num_heads)
     if x.device.type == "cpu":
         return multihead_attention(x, w_qkv, b_qkv, w_out, b_out, num_heads)
     global LAUNCHES
@@ -173,3 +180,17 @@ def fused_attention(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
     _gemm_bias(core, n * t, e, w_out, b_out, out.data_ptr(), p.out, dt, stream)
     LAUNCHES += 1
     return out
+
+
+@torch.library.custom_op("dm_port::fused_attention", mutates_args=())
+def fused_attention_op(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                       w_out: torch.Tensor, b_out: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K2 as a registered op, so that ``torch.export`` records the call
+    instead of tracing the ``ctypes`` launches: its body is
+    :func:`fused_attention` (the kernels on CUDA, the plain version on CPU)."""
+    return fused_attention(x, w_qkv, b_qkv, w_out, b_out, num_heads)
+
+
+@fused_attention_op.register_fake
+def _fused_attention_fake(x, w_qkv, b_qkv, w_out, b_out, num_heads):
+    return torch.empty_like(x)

@@ -40,7 +40,8 @@ MAX_CLUSTER = 16             # the largest cluster the kernel is launched with (
 MAX_GROUP_LEN = 2 ** 24      # counts are carried in float32, exact below this
 MAX_GROUPS = 65535           # the split path's grid.y
 
-# wrapper calls that launched the kernel (not counting CPU calls)
+# wrapper calls that launched the kernel (not counting CPU calls), through the
+# registered op too
 LAUNCHES = 0
 
 
@@ -193,7 +194,13 @@ def groupnorm_act_plain(x, weight, bias, num_groups: int, act: str = "", eps: fl
 
 def groupnorm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   num_groups: int, act: str = "", eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm(num_groups) + ``act`` ('' | 'silu' | 'relu') on ``(N, C, *spatial)``."""
+    """GroupNorm(num_groups) + ``act`` ('' | 'silu' | 'relu') on ``(N, C, *spatial)``.
+
+    Under ``torch.export`` the call is traced as the
+    registered op ``torch.ops.dm_port.groupnorm_act``, whose body is this
+    function; eager calls skip the op's dispatcher."""
+    if torch.compiler.is_compiling():
+        return torch.ops.dm_port.groupnorm_act(x, weight, bias, num_groups, act, eps)
     if x.device.type == "cpu":
         return groupnorm_act_plain(x, weight, bias, num_groups, act, eps)
     global LAUNCHES
@@ -219,3 +226,17 @@ def groupnorm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _lib.check(err, "groupnorm_act")
     LAUNCHES += 1
     return y
+
+
+@torch.library.custom_op("dm_port::groupnorm_act", mutates_args=())
+def groupnorm_act_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     num_groups: int, act: str, eps: float) -> torch.Tensor:
+    """K1 as a registered op, so that ``torch.export`` records the call
+    instead of tracing the ``ctypes`` launch: its body is
+    :func:`groupnorm_act` (the kernel on CUDA, the plain version on CPU)."""
+    return groupnorm_act(x, weight, bias, num_groups, act, eps)
+
+
+@groupnorm_act_op.register_fake
+def _groupnorm_act_fake(x, weight, bias, num_groups, act, eps):
+    return torch.empty_like(x)

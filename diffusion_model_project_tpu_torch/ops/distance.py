@@ -34,9 +34,10 @@ def _column_distance(solid: torch.Tensor) -> torch.Tensor:
     # nearest solid at or below: the same on the row-flipped image
     below = torch.where(solid.flip(1), rows, torch.full_like(rows, -1)).cummax(dim=1).values
     below = (h - 1 - below).flip(1)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=solid.device)
-    down = torch.where(above >= 0, (rows - above).float(), big)
-    up = torch.where(below <= h - 1, (below - rows).float(), big)
+    # the sentinel as a Python scalar: a tensor made from it on the card would
+    # be a copy from the host, which waits for every kernel queued before it
+    down = torch.where(above >= 0, (rows - above).float(), _BIG)
+    up = torch.where(below <= h - 1, (below - rows).float(), _BIG)
     return torch.minimum(down, up)
 
 

@@ -73,6 +73,9 @@ def run_cv(args, shutdown) -> None:
 def main(argv=None) -> None:
     args = parser.parse_args(argv)
     refuse_unported(args)
+    if args.debug_nans:
+        from .utils.profiling import enable_nan_debugging
+        enable_nan_debugging()
     with GracefulShutdown() as shutdown:
         if args.mode == "train":
             train_loader, val_loader, test_loader = _loaders(args)[0]

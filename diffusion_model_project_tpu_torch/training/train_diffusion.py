@@ -12,6 +12,7 @@ MedianPruner) is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os.path as osp
@@ -278,22 +279,29 @@ def train(args, train_loader, val_loader, test_loader=None, *, seed: int = 0,
         for loader in (train_loader, val_loader):
             if hasattr(loader, "set_epoch"):
                 loader.set_epoch(epoch)
+        # --profile-dir: a torch.profiler trace of epoch 0, as the JAX trainer
+        # traces its first epoch
+        profile_ctx = contextlib.nullcontext()
+        if epoch == 0 and getattr(args, "profile_dir", None):
+            from ..utils.profiling import profile_trace
+            profile_ctx = profile_trace(args.profile_dir)
         try:
-            avg_train_loss, avg_val_loss, physics_metrics = run_epoch(
-                (train_loader, val_loader), predictor, optimizer,
-                generator=generator,
-                cost_name=td["cost_function"],
-                lambda_div=td["lambda_div"],
-                lambda_flow=td["lambda_flow"],
-                lambda_smooth=td["lambda_smooth"],
-                lambda_laplacian=td["lambda_laplacian"],
-                physics_loss_freq=td["physics_loss_freq"],
-                lambda_velocity=td["lambda_velocity"],
-                weight_u=td["weight_u"], weight_v=td["weight_v"],
-                weight_w=td["weight_w"],
-                velocity_loss_primary=td["velocity_loss_primary"],
-                should_stop=should_stop,
-            )
+            with profile_ctx:
+                avg_train_loss, avg_val_loss, physics_metrics = run_epoch(
+                    (train_loader, val_loader), predictor, optimizer,
+                    generator=generator,
+                    cost_name=td["cost_function"],
+                    lambda_div=td["lambda_div"],
+                    lambda_flow=td["lambda_flow"],
+                    lambda_smooth=td["lambda_smooth"],
+                    lambda_laplacian=td["lambda_laplacian"],
+                    physics_loss_freq=td["physics_loss_freq"],
+                    lambda_velocity=td["lambda_velocity"],
+                    weight_u=td["weight_u"], weight_v=td["weight_v"],
+                    weight_w=td["weight_w"],
+                    velocity_loss_primary=td["velocity_loss_primary"],
+                    should_stop=should_stop,
+                )
         except PreemptStop as e:
             print(f"Epoch {epoch} abandoned ({e}); state is at epoch "
                   f"{epoch - 1 if epoch else 'none (no epoch completed)'}")

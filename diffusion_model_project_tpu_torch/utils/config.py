@@ -119,10 +119,11 @@ def build_parser() -> argparse.ArgumentParser:
     group_train.add_argument("--num-timesteps", type=int, default=1000)
     # extensions beyond the reference CLI
     group_train.add_argument("--profile-dir", type=str, default=None,
-                             help="Capture a profiler trace of the first epoch into this dir "
-                                  "(not ported: refused).")
+                             help="Capture a torch.profiler trace of the first epoch into "
+                                  "this dir (TensorBoard trace handler).")
     group_train.add_argument("--debug-nans", type=str_to_bool, default=False,
-                             help="Trap NaN/Inf at the producing op (not ported: refused).")
+                             help="Raise at the first module whose output (or its "
+                                  "gradient) holds a NaN/Inf; anomaly mode in backward.")
     group_train.add_argument("--resume", type=str, default=None,
                              help="Resume training from this run dir's train_state.msgpack "
                                   "(full state incl. optimizer; the reference only ever "
@@ -287,7 +288,6 @@ def make_log_folder(param_dict: dict) -> str:
 # flags whose feature is not ported yet, and the ROADMAP.md item that ports it
 _OPTIMIZE = "ROADMAP.md Queue 1 item 6a (--mode optimize: training/tpe.py, MedianPruner)"
 _CACHE = "ROADMAP.md Queue 1 item 6b (--cache-latents: the latent and flip-variant caches)"
-_OBSERVE = "ROADMAP.md Queue 1 item 7 (observability: utils/profiling.py)"
 _PARALLEL = "ROADMAP.md Queue 1 item 8 (parallel: DDP, FSDP, process groups)"
 
 
@@ -306,10 +306,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         found.append(("--fsdp", _PARALLEL))
     if args.coordinator is not None or args.num_processes is not None:
         found.append(("--coordinator / --num-processes", _PARALLEL))
-    if args.profile_dir is not None:
-        found.append(("--profile-dir", _OBSERVE))
-    if args.debug_nans:
-        found.append(("--debug-nans", _OBSERVE))
     if found:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(f"{flag} ({item})" for flag, item in found))

@@ -604,3 +604,66 @@ def test_vae_microbatch_gradients_on_the_card_match_the_cpu(no_tf32, stage):
             g = torch.autograd.grad(loss, [p for p in vae.parameters() if p.requires_grad])
         grads.append(torch.cat([x.reshape(-1).cpu() for x in g]))
     assert _rel_err(grads[1], grads[0]) <= 1e-3
+
+
+# ------------------------------------------------------------- registered ops
+
+
+def _k2_inputs(gen, n, t, e, dtype=torch.bfloat16):
+    x = torch.randn((n, t, e), generator=gen, device="cuda").to(dtype)
+    w_qkv = (torch.randn((3 * e, e), generator=gen, device="cuda") / math.sqrt(e)).to(dtype)
+    b_qkv = (0.02 * torch.randn(3 * e, generator=gen, device="cuda")).to(dtype)
+    w_out = (torch.randn((e, e), generator=gen, device="cuda") / math.sqrt(e)).to(dtype)
+    b_out = (0.02 * torch.randn(e, generator=gen, device="cuda")).to(dtype)
+    return x, w_qkv.t(), b_qkv, w_out.t(), b_out  # the module's transposed views
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registered_ops_equal_the_wrappers_bit_for_bit(gen, dtype):
+    x, w, b = _k1_inputs(gen, (8, 256, 16, 16), dtype)
+    before = k1.LAUNCHES
+    got = torch.ops.dm_port.groupnorm_act(x, w, b, 32, "silu", 1e-5)
+    assert k1.LAUNCHES == before + 1  # the op's body is the wrapper's launch
+    assert torch.equal(got, k1.groupnorm_act(x, w, b, 32, "silu"))
+    args = _k2_inputs(gen, 88, 64, 512, dtype)
+    before = k2.LAUNCHES
+    got = torch.ops.dm_port.fused_attention(*args, 2)
+    assert k2.LAUNCHES == before + 1
+    assert torch.equal(got, k2.fused_attention(*args, 2))
+
+
+@pytest.mark.cuda
+def test_registered_ops_trace_on_fake_tensors(gen):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    x, w, b = _k1_inputs(gen, (88, 64, 64, 64))
+    args = _k2_inputs(gen, 88, 256, 256)
+    before = (k1.LAUNCHES, k2.LAUNCHES)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fx, fw, fb = (mode.from_tensor(t) for t in (x, w, b))
+        y = torch.ops.dm_port.groupnorm_act(fx, fw, fb, 32, "", 1e-5)
+        z = torch.ops.dm_port.fused_attention(*(mode.from_tensor(t) for t in args), 2)
+    assert (y.shape, y.dtype, y.device) == (x.shape, x.dtype, x.device)
+    assert (z.shape, z.dtype, z.device) == (args[0].shape, args[0].dtype, args[0].device)
+    assert (k1.LAUNCHES, k2.LAUNCHES) == before  # nothing launched on fake tensors
+    torch.library.opcheck(torch.ops.dm_port.groupnorm_act.default, (x, w, b, 32, "silu", 1e-5),
+                          test_utils=("test_schema", "test_faketensor"))
+    torch.library.opcheck(torch.ops.dm_port.fused_attention.default, (*args, 2),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+def test_served_batch_shapes_against_the_plain_versions(gen):
+    """The server's B=8 shapes: K1 on the VAE's (8, 128, 11, 256, 256) and K2
+    at N = 8 x 11 = 88, bf16, within chip_smoke.py's K1_TOL / K2_TOL."""
+    x, w, b = _k1_inputs(gen, (8, 128, 11, 256, 256))
+    _k1_check(x, w, b, 32, "silu", tol=2.0 ** -7)
+    del x
+    for t, e in ((256, 256), (64, 512), (16, 1024)):
+        args = _k2_inputs(gen, 88, t, e)
+        before = k2.LAUNCHES
+        got = k2.fused_attention(*args, 2)
+        torch.cuda.synchronize()
+        assert k2.LAUNCHES == before + 1
+        assert _rel_err(got, multihead_attention(*[a.float() for a in args], 2)) <= 1.3e-2

@@ -1,8 +1,8 @@
 """Guards that keep the PyTorch port separate from the JAX package and keep
 its kernels from falling back: no import of ``jax``, ``flax``, ``msgpack`` or
 ``diffusion_model_project_tpu`` anywhere in the port or in ``chip_smoke.py``,
-no CPU default for the entry points, and kernel modules that import without
-``nvcc`` or CUDA."""
+no CPU default for the entry points (the serving, export and benchmark CLIs
+too), and kernel modules that import without ``nvcc`` or CUDA."""
 import ast
 import os
 import pathlib
@@ -47,20 +47,49 @@ def test_port_and_chip_smoke_import_no_jax():
             "train_3d_vae_only.py", "train_2d_with_cross.py", "training/accum.py",
             "training/train_vae_stage1.py", "training/train_vae_stage2.py", "data/split.py",
             "data/statistics.py", "scripts/generate_statistics.py",
-            "scripts/data_split.py"} <= names
+            "scripts/data_split.py", "utils/serving.py", "utils/export.py",
+            "utils/profiling.py", "utils/torch_export.py", "scripts/serve.py",
+            "scripts/export_sampler.py", "scripts/perf_serving.py",
+            "scripts/perf_serve_daemon.py", "scripts/perf_serve_latency.py",
+            "scripts/export_torch.py", "scripts/plot_loss.py",
+            "scripts/plot_physics_metrics.py", "scripts/plot_vae_loss.py"} <= names
     offenders = {str(f.relative_to(REPO)): sorted(set(_imported_top_levels(f)) & FORBIDDEN)
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}
 
 
+def _uses_torch_compile(tree: ast.AST) -> bool:
+    """Whether the module refers to ``torch.compile`` (called, passed or as a
+    decorator, under any name torch or its ``compile`` is imported as);
+    ``torch.compiler`` is another name."""
+    torch_names, compile_names = {"torch"}, set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            torch_names |= {a.asname for a in node.names if a.name == "torch" and a.asname}
+        elif isinstance(node, ast.ImportFrom) and node.module == "torch":
+            compile_names |= {a.asname or a.name for a in node.names if a.name == "compile"}
+    return any((isinstance(node, ast.Attribute) and node.attr == "compile"
+                and isinstance(node.value, ast.Name) and node.value.id in torch_names)
+               or (isinstance(node, ast.Name) and node.id in compile_names)
+               for node in ast.walk(tree))
+
+
 def test_port_calls_no_library_kernel_for_k1_or_k2():
     # GroupNorm and self-attention run in the hand-written kernels; library
     # versions may appear only as chip_smoke.py's timing yardstick
-    calls = ("scaled_dot_product_attention", "F.group_norm", "torch.compile",
+    calls = ("scaled_dot_product_attention", "F.group_norm",
              "nn.GroupNorm(", "nn.MultiheadAttention(")
     found = {str(f.relative_to(REPO)): [c for c in calls if c in f.read_text()]
+             + (["torch.compile"] if _uses_torch_compile(ast.parse(f.read_text())) else [])
              for f in _port_sources()}
     assert {k: v for k, v in found.items() if v} == {}
+    # the rule itself: every way of reaching torch.compile, and not torch.compiler
+    for text in ("import torch\nf = torch.compile(g)", "import torch as t\n@t.compile\ndef f(): pass",
+                 "from torch import compile\ncompile(g)", "from torch import compile as c\nh = c"):
+        assert _uses_torch_compile(ast.parse(text)), text
+    for text in ("import torch\ntorch.compiler.is_compiling()", "import re\nre.compile('x')",
+                 "from torch import compiler\ncompiler.is_compiling()"):
+        assert not _uses_torch_compile(ast.parse(text)), text
 
 
 def test_k3_wrapper_calls_no_library_conv():
@@ -116,6 +145,19 @@ def test_import_chain_leaves_jax_unloaded():
             "import diffusion_model_project_tpu_torch.train_2d_with_cross\n"
             "import diffusion_model_project_tpu_torch.scripts.generate_statistics\n"
             "import diffusion_model_project_tpu_torch.scripts.data_split\n"
+            "import diffusion_model_project_tpu_torch.utils.serving\n"
+            "import diffusion_model_project_tpu_torch.utils.export\n"
+            "import diffusion_model_project_tpu_torch.utils.profiling\n"
+            "import diffusion_model_project_tpu_torch.utils.torch_export\n"
+            "import diffusion_model_project_tpu_torch.scripts.serve\n"
+            "import diffusion_model_project_tpu_torch.scripts.export_sampler\n"
+            "import diffusion_model_project_tpu_torch.scripts.perf_serving\n"
+            "import diffusion_model_project_tpu_torch.scripts.perf_serve_daemon\n"
+            "import diffusion_model_project_tpu_torch.scripts.perf_serve_latency\n"
+            "import diffusion_model_project_tpu_torch.scripts.export_torch\n"
+            "import diffusion_model_project_tpu_torch.scripts.plot_loss\n"
+            "import diffusion_model_project_tpu_torch.scripts.plot_physics_metrics\n"
+            "import diffusion_model_project_tpu_torch.scripts.plot_vae_loss\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'msgpack', 'diffusion_model_project_tpu'))\n"
             "assert not bad, bad\n")
@@ -176,3 +218,30 @@ def test_vae_training_entry_points_default_to_cuda_and_raise_without_it(tmp_path
     for main, argv in ((train_vae_stage1.main, s1), (train_vae_stage2.main, s2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
+
+
+def test_serving_and_export_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    import json
+
+    from diffusion_model_project_tpu_torch.scripts import (export_sampler, perf_serve_daemon,
+                                                           perf_serve_latency, perf_serving,
+                                                           serve)
+    from diffusion_model_project_tpu_torch.utils.config import PUBLISHED_UNET_KWARGS
+
+    predictor = {"model_name": "UNet", "model_kwargs": dict(PUBLISHED_UNET_KWARGS)}
+    (tmp_path / "log.json").write_text(json.dumps({"params": {"training": {
+        "predictor_type": "latent-diffusion", "predictor": predictor}}}))
+    run = ["--model-dir", str(tmp_path)]
+    clis = ((serve, run), (export_sampler, run + ["--out", str(tmp_path / "x.pt2")]),
+            (perf_serving, []), (perf_serve_daemon, []), (perf_serve_latency, []))
+    for cli, argv in clis:
+        assert cli.parse_args(argv).device == "cuda", cli.__name__
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    assert not (tmp_path / "x.pt2").exists()
+    # the run-dir converter touches no device: it reads msgpack and writes .pt
+    text = (PORT / "scripts" / "export_torch.py").read_text() + \
+        (PORT / "utils" / "torch_export.py").read_text()
+    assert "cuda" not in text and "resolve_device" not in text
