@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1, 2, 5, 3, 4, 8, 9, 10, 12, 14, 16, 11, 13, 15, 17, 6, 7 (the conv probe's
+Phases, in the order 1, 2, 5, 3, 4, 18, 8, 9, 10, 12, 14, 16, 19, 11, 13, 15, 17, 6, 7 (the conv probe's
 device times are read before phase 3 profiles a UNet forward; see
 device_kernels); any failure raises and the script exits non-zero without
 printing a result line:
@@ -43,7 +43,8 @@ printing a result line:
      kernel's "cli", phase 11's under its "evaluation", phase 13's and the
      training paths' launches under its "training", phase 15's and the VAE
      training paths' launches under its "vae_training", phase 17's and the
-     serving paths' launches under its "serving"), then the result line;
+     serving paths' launches under its "serving", phase 18's rows and phase
+     19's launches under K2's "wide"), then the result line;
   8. entry point: a run dir in the reference layout (log.json naming a VAE
      dir, the dataset, evaluate's batch 2 and cost; best_model.pt of a
      seeded published-width predictor, float32; vae.pt with dual_full keys
@@ -140,12 +141,28 @@ printing a result line:
      --debug-nans on data carrying a NaN raises naming a module;
  17. serve kernels: phase 4 at the pairs of phase 16 that no earlier phase
      held (UNet N=88 and VAE B=8, bf16).
+ 18. wide attention: K2 against its plain version at attention shapes beyond
+     the published UNet's (WIDE_K2_SHAPES: head dims 32 to 2,048, 48 through
+     zero-padded weights, up to 11,264 tokens), bf16 and float32, with
+     phase 4's times, bound and library call;
+ 19. search and cached latents, on phase 8's dirs (phase_search): (b) one
+     epoch of the train CLI at --features 32 64 128 256 --attention 3..2
+     (K2 at head dim 64 in its validation and test passes) and one DDIM-50
+     request of the inference CLI at --attention 1..2 (K2 over 4,096
+     tokens) on a run dir written here; (c) --mode optimize, 2 trials of 1
+     epoch (study.json, a run dir a trial); (d) the port's grid search,
+     --grid-index 0, 1 epoch (results.csv, the reports; the dry-run forward
+     at 128^2 on the card); (e) the first train batch's loss through the
+     latent cache against the uncached one under the same noise and t, then
+     --cache-latents with and without --augment, 1 epoch each; every run's
+     launches held to the module-derived counts.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
 import collections
 import copy
+import csv
 import json
 import math
 import os
@@ -379,26 +396,30 @@ def phase_build() -> dict:
 
 def published_predictor(device, dtype, seed=0, num_timesteps=1000):
     from diffusion_model_project_tpu_torch.diffusion.predictor import LatentDiffusionPredictor
-    from diffusion_model_project_tpu_torch.models.layers import uniform_
-    from diffusion_model_project_tpu_torch.models.unet import SelfAttention2D
     from diffusion_model_project_tpu_torch.utils.config import (
         PUBLISHED_LATENT_CHANNELS, PUBLISHED_UNET_KWARGS)
 
     pred = LatentDiffusionPredictor.create(
         dict(PUBLISHED_UNET_KWARGS), seed=seed, device="cpu", compute_dtype=dtype,
         num_timesteps=num_timesteps, latent_channels=PUBLISHED_LATENT_CHANNELS)
-    # the JAX init zeroes final_conv and proj_out (output identically 0,
-    # attention path dead); give them random weights so both are exercised
-    gen = torch.Generator().manual_seed(seed + 1)
-    unet = pred.model
+    enliven(pred.model, seed + 1)
+    pred.set_normalizer({"input": [1.0], "output": NORM_OUTPUT})
+    return pred.to(device)
+
+
+def enliven(unet, seed: int) -> None:
+    """The JAX init zeroes final_conv and proj_out (output identically 0,
+    attention path dead); give them random weights so both are exercised."""
+    from diffusion_model_project_tpu_torch.models.layers import uniform_
+    from diffusion_model_project_tpu_torch.models.unet import SelfAttention2D
+
+    gen = torch.Generator().manual_seed(seed)
     uniform_(unet.final_conv.weight, 1.0 / math.sqrt(unet.final_conv.weight[0].numel()), gen)
     uniform_(unet.final_conv.bias, 0.05, gen)
     for m in unet.modules():
         if isinstance(m, SelfAttention2D):
             uniform_(m.proj_out.weight, 1.0 / math.sqrt(m.proj_out.weight.shape[1]), gen)
             uniform_(m.proj_out.bias, 0.05, gen)
-    pred.set_normalizer({"input": [1.0], "output": NORM_OUTPUT})
-    return pred.to(device)
 
 
 def make_inputs(b, s, hw, seed):
@@ -1323,6 +1344,32 @@ def _read_log(run_dir: str) -> dict:
         return json.load(f)
 
 
+def check_step_launches(label: str, rec, calls: dict) -> tuple:
+    """Each recorded step's launches against the module-derived counts: in a
+    train step the frozen encodes' (E3D + E2D GroupNorms; the UNet and D3D
+    run plain under autograd), in a validation or test step E3D + E2D + UNet
+    GroupNorms, with D3D's where the step reconstructs the velocity, and the
+    UNet's attentions. Returns the launches summed over the train steps and
+    over the others."""
+    for st in rec.steps:
+        if st["kind"].startswith("train"):
+            want = {**_ZERO, "groupnorm_act": calls["encoder_3d"] + calls["encoder_2d"]}
+        else:
+            physics = "div_mean" in st["values"]
+            want = {"groupnorm_act": calls["encoder_3d"] + calls["encoder_2d"] + calls["unet"]
+                    + (calls["decoder_3d"] if physics else 0),
+                    "fused_attention": calls["attention"], "conv3x3": 0}
+        if st["launches"] != want:
+            raise RuntimeError(f"[training] {label}: a {st['kind']} step launched "
+                               f"{st['launches']}, expected {want}")
+
+    def launched(train):
+        return {k: sum(st["launches"][k] for st in rec.steps
+                       if st["kind"].startswith("train") == train) for k in _ZERO}
+
+    return launched(True), launched(False)
+
+
 def train_run(label: str, argv: list, calls: dict, smi: str, run_dir=None) -> dict:
     """One call of the port's train CLI with the launch counters set to 0
     before it and read after it, every step timed and its launches checked
@@ -1344,23 +1391,7 @@ def train_run(label: str, argv: list, calls: dict, smi: str, run_dir=None) -> di
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
     run_dir = run_dir or _newest_run(argv[argv.index("--save-dir") + 1])
     log_json = _read_log(run_dir)
-    for st in rec.steps:
-        if st["kind"].startswith("train"):
-            want = {**_ZERO, "groupnorm_act": calls["encoder_3d"] + calls["encoder_2d"]}
-        else:
-            physics = "div_mean" in st["values"]
-            want = {"groupnorm_act": calls["encoder_3d"] + calls["encoder_2d"] + calls["unet"]
-                    + (calls["decoder_3d"] if physics else 0),
-                    "fused_attention": calls["attention"], "conv3x3": 0}
-        if st["launches"] != want:
-            raise RuntimeError(f"[training] {label}: a {st['kind']} step launched "
-                               f"{st['launches']}, expected {want}")
-
-    def launched(train):
-        return {k: sum(st["launches"][k] for st in rec.steps
-                       if st["kind"].startswith("train") == train) for k in _ZERO}
-
-    train_launches, eval_launches = launched(True), launched(False)
+    train_launches, eval_launches = check_step_launches(label, rec, calls)
     if total != {k: train_launches[k] + eval_launches[k] for k in _ZERO}:
         raise RuntimeError(f"[training] {label}: the run launched {total}, its train steps "
                            f"{train_launches} and its eval steps {eval_launches}")
@@ -2725,6 +2756,259 @@ def phase_serving(smi: str, run_dir: str, data_dir: str, vae_dir: str, root: str
     return out
 
 
+# phase 18: K2 at attention shapes beyond the published UNet's, each dtype:
+# the grid's narrow stacks (hd 64 at T 256 and 1,024), --attention 1..2 (hd
+# 32 at 4,096 tokens), --attention 3..4 at N=88 (hd 64), the optimize space's
+# 2048-wide bottom at T=1 (hd 1,024 and 2,048), a head dim off the core's
+# instances (hd 48), and an AttentionBlock's 11 x 32^2 tokens
+WIDE_K2_SHAPES = (((22, 256, 128), 2), ((22, 1024, 128), 2), ((22, 4096, 64), 2),
+                  ((88, 256, 256), 4), ((22, 1, 2048), 2), ((22, 1, 2048), 1),
+                  ((2, 64, 96), 2), ((2, 11264, 512), 2))
+
+
+def phase_wide_attention() -> list:
+    """Phase 18: K2 against its plain version at WIDE_K2_SHAPES in bf16
+    (K2_TOL) and float32 (K2_TOL_F32), with phase 4's times, bound and library
+    call, one call each."""
+    shapes = {("fused_attention", shape, heads, str(dt)): 1
+              for shape, heads in WIDE_K2_SHAPES for dt in (torch.bfloat16, torch.float32)}
+    rows, _ = phase_kernels(shapes, {"fused_attention": 1}, tag="wide attention")
+    return rows
+
+
+# phase 19: the search modes and --cache-latents, on phase 8's data
+SEARCH_FEATURES = (32, 64, 128, 256)  # the grid's first stack: hd 64 at level 3
+CACHE_TOL = 1e-5  # the first step's cached loss against the uncached one, relative
+
+
+def search_calls(written_pred, unet_kwargs: dict) -> dict:
+    """:func:`module_calls` with ``written_pred``'s VAE and a UNet of ``unet_kwargs``."""
+    from diffusion_model_project_tpu_torch.models.layers import GroupNorm, MultiheadSelfAttention
+    from diffusion_model_project_tpu_torch.models.unet import UNet
+
+    with torch.device("meta"):
+        unet = UNet(**unet_kwargs)
+    return {**module_calls(written_pred),
+            "unet": sum(isinstance(m, GroupNorm) for m in unet.modules()),
+            "attention": sum(isinstance(m, MultiheadSelfAttention) for m in unet.modules())}
+
+
+def write_run_dir(run: str, vae_dir: str, data_dir: str, unet_kwargs: dict, seed: int) -> str:
+    """A run dir in the reference layout (best_model.pt, log.json naming the
+    VAE dir) of a seeded predictor with a UNet of ``unet_kwargs``."""
+    from diffusion_model_project_tpu_torch.diffusion.predictor import LatentDiffusionPredictor
+    from diffusion_model_project_tpu_torch.utils.config import PUBLISHED_LATENT_CHANNELS
+
+    pred = LatentDiffusionPredictor.create(dict(unet_kwargs), seed=seed, device="cpu",
+                                           num_timesteps=1000,
+                                           latent_channels=PUBLISHED_LATENT_CHANNELS)
+    enliven(pred.model, seed + 1)
+    os.makedirs(run)
+    torch.save({k: v for k, v in pred.state_dict().items() if k.startswith("model.")},
+               os.path.join(run, "best_model.pt"))
+    predictor_kwargs = {"model_name": "UNet", "model_kwargs": dict(unet_kwargs),
+                        "distance_transform": True, "num_slices": S, "num_timesteps": 1000,
+                        "vae_path": vae_dir}
+    with open(os.path.join(run, "log.json"), "w") as f:
+        json.dump({"params": {
+            "dataset": {"root_dir": data_dir, "batch_size": EVAL_B, "use_3d": True},
+            "training": {"predictor_type": "latent-diffusion", "predictor": predictor_kwargs,
+                         "cost_function": EVAL_COST}}}, f)
+    return run
+
+
+def _recorded(label: str, main, argv: list, calls: dict) -> tuple:
+    """``main(argv)`` with the launch counters set to 0 and every train /
+    validation / test step recorded and held to the module-derived counts
+    (:func:`check_step_launches`); returns (recorder, launches of the whole
+    call, of the steps, seconds)."""
+    _zero_launches()
+    t0 = time.perf_counter()
+    with TrainRecorder() as rec:
+        main(argv)
+    _sync()
+    secs = time.perf_counter() - t0
+    total = _launches()
+    tr, ev = check_step_launches(label, rec, calls)
+    return rec, total, {k: tr[k] + ev[k] for k in _ZERO}, secs
+
+
+def _finite_log(label: str, run_dir: str, epochs: int) -> dict:
+    log_json = _read_log(run_dir)
+    losses = log_json["train_loss"] + log_json["val_loss"] + [log_json.get("test_loss", 0.0)]
+    if len(log_json["epoch"]) != epochs or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"[search] {label}: {run_dir}'s log holds epochs "
+                           f"{log_json['epoch']}, losses {losses}")
+    return log_json
+
+
+def phase_search(smi: str, data_dir: str, vae_dir: str, written_pred, root: str) -> dict:
+    """Phase 19 on phase 8's dataset and VAE dir, with K2 at shapes beyond
+    the published UNet's: (b) one epoch of the train CLI (its validation and
+    test passes launch K2 at hd 64) at --features 32 64 128 256 --attention
+    3..2, and one inference CLI DDIM-50 request at --attention 1..2 (K2 at
+    4,096 tokens) on a run dir written here; (c) --mode optimize, 2 trials of
+    1 epoch; (d) the port's grid search, --grid-index 0, 1 epoch; (e) the
+    first step's loss through the latent cache against the uncached one
+    under the same noise and t, then --cache-latents with and without
+    --augment, 1 epoch each. Every run's launches are held to the counts
+    derived from the modules."""
+    from diffusion_model_project_tpu_torch import inference
+    from diffusion_model_project_tpu_torch import train as train_cli
+    from diffusion_model_project_tpu_torch.data import get_loader
+    from diffusion_model_project_tpu_torch.scripts import gridsearch_diffusion as gs
+    from diffusion_model_project_tpu_torch.training.helper import (_batch_dict,
+                                                                   _natural_order_batches,
+                                                                   set_model)
+    from diffusion_model_project_tpu_torch.training.steps import (cached_latent_loss_fn,
+                                                                  diffusion_loss_fn,
+                                                                  precompute_latent_cache)
+    from diffusion_model_project_tpu_torch.utils.config import (PUBLISHED_UNET_KWARGS, parser,
+                                                                process_args)
+
+    t_phase = time.perf_counter()
+    base = os.path.join(root, "search")
+    feats = [str(f) for f in SEARCH_FEATURES]
+    kw = dict(PUBLISHED_UNET_KWARGS, features=SEARCH_FEATURES)
+    calls = search_calls(written_pred, kw)
+    res = {"features": list(SEARCH_FEATURES), "calls": calls}
+
+    # (b) the train CLI at the grid's first stack; the inference CLI at --attention 1..2
+    res["b_train"] = train_run("(b) --features 32 64 128 256 --attention 3..2, 1 epoch",
+                               train_argv(data_dir, vae_dir, os.path.join(base, "b"),
+                                          "--num-epochs", "1", "--features", *feats),
+                               calls, smi)
+    run_12 = write_run_dir(os.path.join(base, "run_1_2"), vae_dir, data_dir,
+                           dict(PUBLISHED_UNET_KWARGS, attention="1..2"), seed=8)
+    _zero_launches()
+    cli = inference.run(["--model-dir", run_12, "--sampler", "ddim", "--steps", str(STEPS),
+                         "--device", TRAIN_DEVICE])
+    launched = _launches()
+    gn, attn = expected_calls(cli.predictor, STEPS)
+    ok = (cli.prediction.shape == (1, S, 3, HW, HW)
+          and bool(torch.isfinite(torch.from_numpy(cli.prediction)).all()))
+    log(f"[search] (b) inference CLI, DDIM-{STEPS}, --attention 1..2 (the UNet's first level "
+        f"attends over {(HW // 4) ** 2} tokens): output {cli.prediction.shape} finite: {ok}; "
+        f"request {cli.seconds * 1e3:.1f} ms; launches {launched} (expected {gn} / {attn} / 0)"
+        f" | {smi}")
+    if not ok or launched != {"groupnorm_act": gn, "fused_attention": attn, "conv3x3": 0}:
+        raise RuntimeError(f"(b): output ok {ok}, launches {launched}")
+    res["b_inference"] = {"request_ms": cli.seconds * 1e3, "launches": launched}
+    del cli
+
+    # (c) --mode optimize: 2 trials of 1 epoch, each drawing its batch, kernel
+    # and lr; 4 levels from 32 channels = the same UNet as (b)
+    save_c = os.path.join(base, "c")
+    argv_c = train_argv(data_dir, vae_dir, save_c, "--mode", "optimize", "--n-trials", "2",
+                        "--num-epochs", "1", "--range-batch-size", str(TRAIN_B), str(TRAIN_B),
+                        "--range-kernel-size", "3", "3", "--range-level", "4", "4",
+                        "--top-feature-channels", feats[0], "--range-learning-rate",
+                        "1e-4", "1e-3")
+    rec, total, steps, secs = _recorded("(c) optimize", train_cli.main, argv_c, calls)
+    with open(os.path.join(save_c, "study.json")) as f:
+        study = json.load(f)
+    runs = sorted(d for d in os.listdir(save_c) if os.path.isdir(os.path.join(save_c, d)))
+    if (total != steps or [r["state"] for r in study] != ["COMPLETE"] * 2 or len(runs) != 2
+            or not all(math.isfinite(r["value"]) for r in study)):
+        raise RuntimeError(f"(c): launches {total} against the steps' {steps}; study {study}; "
+                           f"run dirs {runs}")
+    for d in runs:
+        _finite_log("(c)", os.path.join(save_c, d), 1)
+    log(f"[search] (c) --mode optimize, 2 trials of 1 epoch: {secs:.1f} s; study "
+        + "; ".join(f"trial {r['trial']} {r['state']} value {r['value']!r} params {r['params']}"
+                    for r in study)
+        + f"; launches {total}, every step's module-derived | {smi}")
+    res["c"] = {"seconds": secs, "study": study, "launches": total}
+
+    # (d) the grid search's first entry: the dry-run forward at 128^2 launches
+    # E3D + E2D + UNet GroupNorms and the UNet's attentions once
+    save_d = os.path.join(base, "d")
+    argv_d = ["--root-dir", data_dir, "--save-dir", save_d, "--vae-path", vae_dir,
+              "--in-channels", str(kw["in_channels"]), "--out-channels", str(kw["out_channels"]),
+              "--batch-size", str(TRAIN_B), "--epochs", "1", "--num-slices", str(S),
+              "--num-timesteps", "1000", "--device", TRAIN_DEVICE, "--grid-index", "0"]
+    if list(gs.GRID[0]["features"]) != list(SEARCH_FEATURES):
+        raise RuntimeError(f"the grid's first entry is {gs.GRID[0]}")
+    rec, total, steps, secs = _recorded("(d) grid", gs.main, argv_d, calls)
+    dry = {"groupnorm_act": calls["encoder_3d"] + calls["encoder_2d"] + calls["unet"],
+           "fused_attention": calls["attention"], "conv3x3": 0}
+    with open(os.path.join(save_d, "results.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if (total != {k: steps[k] + dry[k] for k in _ZERO} or len(rows) != 1
+            or rows[0]["run_name"] != gs.run_name(gs.GRID[0])
+            or not math.isfinite(float(rows[0]["val_loss"]))
+            or not all(os.path.exists(os.path.join(save_d, f))
+                       for f in ("top10.csv", "summary.txt"))):
+        raise RuntimeError(f"(d): launches {total}, steps {steps} + dry run {dry}; rows {rows}")
+    log(f"[search] (d) grid search --grid-index 0 ({rows[0]['run_name']}), 1 epoch: {secs:.1f} s;"
+        f" val_loss {rows[0]['val_loss']}; launches {total} = the steps' + the dry run's {dry}"
+        f" | {smi}")
+    res["d"] = {"seconds": secs, "row": rows[0], "launches": total}
+
+    # (e) the latent cache: the first train batch's loss through the cache
+    # against the uncached loss, same noise and t; then the CLI
+    argv_e = train_argv(data_dir, vae_dir, os.path.join(base, "e"), "--num-epochs", "1",
+                        "--features", *feats, "--cache-latents", "true")
+    pdict = process_args(parser.parse_args(argv_e))
+    loaders = get_loader(data_dir, batch_size=TRAIN_B, use_3d=True)[0]
+    pred = set_model("latent-diffusion", pdict["training"]["predictor"],
+                     os.path.join(data_dir, "statistics.json"), device=TRAIN_DEVICE)
+    with torch.no_grad():
+        enliven(pred.model, 9)  # a UNet output that depends on its inputs
+    raw = _batch_dict(next(_natural_order_batches(loaders[0])), TRAIN_DEVICE)
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(0)
+    noise = torch.randn((TRAIN_B * S, 8, HW // 4, HW // 4), generator=gen, device=TRAIN_DEVICE)
+    t = torch.randint(0, 1000, (TRAIN_B * S,), generator=gen, device=TRAIN_DEVICE)
+    with torch.no_grad():
+        ref = diffusion_loss_fn(pred, raw, noise=noise, t=t)[0].item()
+        got = cached_latent_loss_fn(pred, precompute_latent_cache(pred, raw), noise=noise,
+                                    t=t)[0].item()
+    rel = abs(got - ref) / abs(ref)
+    log(f"[search] (e) the first train batch's loss through the latent cache {got!r} against "
+        f"the uncached {ref!r}: relative difference {rel:.3e} (tol {CACHE_TOL:.0e})")
+    if not rel <= CACHE_TOL:
+        raise RuntimeError(f"(e): cached loss {got} against uncached {ref}")
+    del pred, raw
+    res["e"] = {"first_loss": {"cached": got, "uncached": ref, "rel_diff": rel}}
+    n_train, n_val, n_test = (len(ld.dataset) for ld in loaders)
+    batches = lambda n: -(-n // TRAIN_B)  # noqa: E731
+    encode = calls["encoder_3d"] + calls["encoder_2d"]
+    for augment, variants in (("false", 1), ("true", 4)):
+        save_e = os.path.join(base, f"e_{augment}")
+        argv = train_argv(data_dir, vae_dir, save_e, "--num-epochs", "1", "--features", *feats,
+                          "--cache-latents", "true", "--augment", augment)
+        _zero_launches()
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        _sync()
+        secs = time.perf_counter() - t0
+        total = _launches()
+        # the cache build encodes every train batch of each variant and the
+        # val batches; the cached train steps launch nothing (the UNet runs
+        # plain under autograd), a cached val step the UNet's calls, a test
+        # step (raw batches) E3D + E2D + the UNet's
+        n_cached_val, n_test_b = batches(n_val), batches(n_test)
+        want = {"groupnorm_act": (variants * batches(n_train) + n_cached_val) * encode
+                + n_cached_val * calls["unet"] + n_test_b * (encode + calls["unet"]),
+                "fused_attention": (n_cached_val + n_test_b) * calls["attention"],
+                "conv3x3": 0}
+        run = _newest_run(save_e)
+        log_json = _finite_log(f"(e) --augment {augment}", run, 1)
+        log(f"[search] (e) --cache-latents --augment {augment}, 1 epoch: {secs:.1f} s (epoch "
+            f"{log_json['time'][0]:.2f} s); train loss {log_json['train_loss']}, val loss "
+            f"{log_json['val_loss']}, test loss {log_json.get('test_loss')}; launches {total} "
+            f"(expected {want}) | {smi}")
+        if total != want:
+            raise RuntimeError(f"(e) --augment {augment}: launches {total}, expected {want}")
+        res["e"][f"augment_{augment}"] = {"seconds": secs, "epoch_s": log_json["time"],
+                                          "train_loss": log_json["train_loss"],
+                                          "val_loss": log_json["val_loss"], "launches": total}
+    shutil.rmtree(base)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[search] the phase took {res['seconds']:.1f} s | {smi}")
+    return res
+
+
 def _totals(rs: list) -> dict:
     """A kernel's numbers a request from its rows: each shape's time times
     its calls a request, summed; the largest error."""
@@ -2741,7 +3025,7 @@ def _totals(rs: list) -> dict:
 def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_rows: list,
               eval_paths: list, train_rows: list, train_paths: list, vae_rows: list,
               vae_paths: list, vae_k1: dict, serve_rows: list, serve_paths: list,
-              sv: dict) -> list:
+              sv: dict, wide_rows: list, search_paths: list) -> list:
     """One entry per kernel; times are per request of its path: one
     predict_ddim for K1 and K2, one call at each probe stage (the planner's
     tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
@@ -2755,7 +3039,9 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
     ``vae_training`` likewise for the VAE trainers' paths, with K1's device
     time a batch of each; ``serving`` the serving paths' launches and a
     dispatch's, and the kernels at the served pairs no earlier phase held
-    (calls a dispatch of the batch size that meets them)."""
+    (calls a dispatch of the batch size that meets them); ``wide`` (K2)
+    each of phase 18's rows, one call at a shape beyond the published UNet's,
+    with the launches of phase 19's paths."""
     meta = {
         "groupnorm_act": ("diffusion_model_project_tpu_torch/csrc/groupnorm_act.cu",
                           "diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py:47"),
@@ -2804,6 +3090,13 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
             entry["serving"].update({"dtypes": sorted({r["dtype"] for r in sr}),
                                      "rel_err": max(r["rel_err"] for r in sr),
                                      "tol": max(r["tol"] for r in sr), **_totals(sr)})
+        if name == "fused_attention":
+            entry["wide"] = {
+                "launches": {p: by_path[p][name] for p in search_paths},
+                "rows": [{k: r[k] for k in ("shape", "dtype", "detail", "max_abs_err", "rel_err",
+                                            "tol", "ms", "device_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms", "library_device_ms")}
+                         for r in wide_rows]}
         out.append(entry)
     return out
 
@@ -2827,6 +3120,9 @@ def main() -> int:
     mark = dict(PROFILER)
     rows, k1_parts = phase_kernels(sl["shapes"], sl["launches"])
     tallies.append(tally("kernels", mark))
+    mark = dict(PROFILER)
+    wide_rows = phase_wide_attention()
+    tallies.append(tally("wide attention", mark))
     from diffusion_model_project_tpu_torch.ops.cuda import _lib
 
     os.makedirs(_lib.BUILD_DIR, exist_ok=True)
@@ -2847,6 +3143,7 @@ def main() -> int:
         tr = phase_training(device["nvidia_smi"], data_dir, vae_dir, written_pred, root)
         vt = phase_vae_training(device["nvidia_smi"], data_dir, root, written_pred)
         sv = phase_serving(device["nvidia_smi"], run_dir, data_dir, vae_dir, root)
+        se = phase_search(device["nvidia_smi"], data_dir, vae_dir, written_pred, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     mark = dict(PROFILER)
@@ -2904,15 +3201,20 @@ def main() -> int:
     serve_paths = {"serve_ddim50": sv["ddim50"]["launches"], "serve_dpm10": sv["dpm10"]["launches"],
                    f"serve_export_ddim{EXPORT_STEPS}": sv["export"]["launches"],
                    "serve_ops_ddim50": sv["op_overhead"]["launches"]["op"]}
+    search_paths = {"search_train_eval_passes": se["b_train"]["eval_launches"],
+                    "search_cli_ddim_attention_1_2": se["b_inference"]["launches"],
+                    "search_optimize": se["c"]["launches"], "search_grid": se["d"]["launches"],
+                    "search_cache_latents": se["e"]["augment_false"]["launches"],
+                    "search_cache_latents_augment": se["e"]["augment_true"]["launches"]}
     by_path = {"ddim_slice": {**sl["launches"], "conv3x3": 0},
                "conv_probe": {"groupnorm_act": 0, "fused_attention": 0,
                               "conv3x3": conv_launches},
                **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}, **eval_paths,
-               **train_paths, **vae_paths, **serve_paths}
+               **train_paths, **vae_paths, **serve_paths, **search_paths}
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches}, by_path,
                         cli_rows, eval_rows, sorted(eval_paths), train_rows, sorted(train_paths),
                         vae_rows, sorted(vae_paths), vt["k1_device_ms"], serve_rows,
-                        sorted(serve_paths), sv)
+                        sorted(serve_paths), sv, wide_rows, sorted(search_paths))
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
@@ -2939,6 +3241,7 @@ def main() -> int:
                                    for k, v in sv[key].items()]
                              for key in ("shapes", "new_shapes")}},
         "serve_kernel_rows": serve_rows, "serve_k1_dispatch_ms": serve_k1_parts,
+        "wide_kernel_rows": wide_rows, "search": se,
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

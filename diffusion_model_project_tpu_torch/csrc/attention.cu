@@ -33,15 +33,26 @@
 //      version does, and P.V runs on wgmma with P from registers and V as
 //      MN-major B. The whole score row is held exactly: a first pass over
 //      the keys takes each row's max and sum, a second recomputes S and
-//      multiplies, so no output is rescaled, and T up to 1024 needs no
-//      64 x T buffer (256 KB at T = 1024 in float32, past the 227 KB a block
-//      may use). At hd = 256 and 512 two consumer warpgroups split the
+//      multiplies, so no output is rescaled and no buffer grows with T: any
+//      T runs. At hd = 256 and 512 two consumer warpgroups split the
 //      output's columns (at most 128 float32 accumulators a thread) and
 //      each computes S. At T = 16 a 64-row tile is three quarters padding;
-//      wgmma still runs it, as the work there is a few MFLOP a block.
+//      wgmma still runs it, as the work there is a few MFLOP a block. The
+//      core has instances at hd = 32, 64, 128, 256 and 512; the wrapper runs
+//      any other hd <= 512 at the next instance through zero-padded copies
+//      of the weights (zero columns of Q and K add nothing to QK^T, zero
+//      columns of V give outputs that the padded w_out rows drop); the
+//      scores are scaled by 1 / sqrt of the true hd, a launch argument, a
+//      product where a division costs a dozen instructions.
 //   3. gemm_bias_sm90 again for the output projection.
-// float32 keeps the SIMT kernels of the first port on purpose: they serve the
-// card-against-CPU check in full float32 (no TF32) and are off the bf16 path.
+// float32 keeps the SIMT GEMM of the first port (full float32 products, no
+// TF32: the card is held to its CPU result at 1e-4), and its core is
+// attention_core_simt: one block per (sample, head, 16 queries, 512 output
+// columns), 32-key tiles streamed through shared memory with an online
+// softmax (running max and sum, the accumulators rescaled a tile), so no
+// buffer grows with T; QK^T runs over the head dim in chunks of at most 512
+// columns, so any hd runs. bf16 takes the same core past hd = 512, where a
+// 64-row Q tile and a K tile no longer fit one block's shared memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -288,11 +299,12 @@ struct CoreStream {
 };
 
 // S = Q K_b^T for the next tile of the stream (a K tile, then released),
-// divided by sqrt(hd) and masked past T. Element i sits at row
-// g + 8 * ((i >> 1) & 1) of the warp's 16 and key 64 b + 8 (i >> 2) + 2 qd + (i & 1).
+// times `scale` (1 / sqrt(hd), rounded to float32) and masked past T.
+// Element i sits at row g + 8 * ((i >> 1) & 1) of the warp's 16 and key
+// 64 b + 8 (i >> 2) + 2 qd + (i & 1).
 template <int HD>
 __device__ __forceinline__ void core_scores(float (&s)[32], CoreStream& st, uint32_t qa, int b,
-                                            int seq, int qd, float sqrt_hd) {
+                                            int seq, int qd, float scale) {
   const uint32_t kb = st.wait();
   fence_regs(s);
   wgmma_fence();
@@ -308,7 +320,7 @@ __device__ __forceinline__ void core_scores(float (&s)[32], CoreStream& st, uint
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int key = 64 * b + 8 * (i >> 2) + 2 * qd + (i & 1);
-    s[i] = key < seq ? s[i] / sqrt_hd : -INFINITY;
+    s[i] = key < seq ? s[i] * scale : -INFINITY;
   }
 }
 
@@ -318,7 +330,7 @@ __device__ __forceinline__ void core_scores(float (&s)[32], CoreStream& st, uint
 template <int HD>
 __global__ void __launch_bounds__(Core<HD>::NWG * 128, 1)
 attention_core_sm90(const __grid_constant__ CUtensorMap tm, bf16* __restrict__ out, int seq,
-                    int H, int stages) {
+                    int H, int stages, float scale) {
   using C = Core<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align_1024(smem_raw);
@@ -350,7 +362,6 @@ attention_core_sm90(const __grid_constant__ CUtensorMap tm, bf16* __restrict__ o
 
   const int warp = threadIdx.x / 32, wg = warp / 4, t = threadIdx.x % 128;
   const int wi = t / 32, g = (t % 32) / 4, qd = t % 4;
-  const float sqrt_hd = sqrtf((float)HD);
   const uint32_t qa = smem_u32(q_s);
   float s[32];
   mbar_wait(q_full, 0);
@@ -358,7 +369,7 @@ attention_core_sm90(const __grid_constant__ CUtensorMap tm, bf16* __restrict__ o
   // pass 1: each row's max and sum of exp over all keys, in float32
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int b = 0; b < nb; ++b) {
-    core_scores<HD>(s, st, qa, b, seq, qd, sqrt_hd);
+    core_scores<HD>(s, st, qa, b, seq, qd, scale);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float mx = -INFINITY;
@@ -383,7 +394,7 @@ attention_core_sm90(const __grid_constant__ CUtensorMap tm, bf16* __restrict__ o
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
   for (int b = 0; b < nb; ++b) {
-    core_scores<HD>(s, st, qa, b, seq, qd, sqrt_hd);
+    core_scores<HD>(s, st, qa, b, seq, qd, scale);
     uint32_t pa[4][4];
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -427,7 +438,7 @@ attention_core_sm90(const __grid_constant__ CUtensorMap tm, bf16* __restrict__ o
 
 template <int HD>
 cudaError_t launch_core_sm90(const void* qkv, void* out, long long n, long long seq, int H,
-                             int stages, int smem, cudaStream_t s) {
+                             float scale, int stages, int smem, cudaStream_t s) {
   if (stages < 2 || smem < core_smem(HD, stages) || smem > SMEM_LIMIT)
     return cudaErrorInvalidValue;
   const long long E = (long long)H * HD;
@@ -443,11 +454,11 @@ cudaError_t launch_core_sm90(const void* qkv, void* out, long long n, long long 
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((seq + 63) / 64), (unsigned)H, (unsigned)n);
   kernel<<<grid, Core<HD>::NWG * 128, smem, s>>>(tm, static_cast<bf16*>(out), (int)seq, H,
-                                                      stages);
+                                                      stages, scale);
   return cudaGetLastError();
 }
 
-// ------------------------------------------------ float32 (SIMT, kept as is)
+// --------------------------------- float32 GEMM and the SIMT core (any hd)
 
 constexpr int BM = 64, BN = 64;
 
@@ -506,6 +517,10 @@ gemm_bias_f32(const float* __restrict__ X, const float* __restrict__ W, long lon
 }
 
 constexpr int BQ = 16, BKV = 32, ATT_THREADS = 256;
+constexpr int SLD = BKV + 1;  // score rows, padded
+
+// must equal ops/cuda/attention.py::simt_smem
+constexpr int simt_smem(int hdc) { return 4 * ((BQ + BKV) * (hdc + 1) + BQ * SLD + 3 * BQ); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -518,74 +533,63 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// qkv: (N, T, 3E), out: (N, T, E), as above. grid (ceil(T / BQ), H, N).
-// 16 x T float32 score rows in shared memory, SIMT products.
-template <int HD>
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// rows x HDC floats into dst (row stride HDC + 1): columns d0 .. d0 + HDC - 1
+// of one head's q, k or v (its first column `col` of a (T, 3E) row of
+// `base`), rows row0 .. row0 + rows - 1; zero past seq and past hd.
+template <typename T, int HDC>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ base, long long rs,
+                                          int rows, int row0, int col, int d0, int seq, int hd) {
+  for (int idx = threadIdx.x; idx < rows * HDC; idx += ATT_THREADS) {
+    const int r = idx / HDC, d = idx % HDC;
+    dst[r * (HDC + 1) + d] = (row0 + r < seq && d0 + d < hd)
+                                 ? to_float(base[(long long)(row0 + r) * rs + col + d0 + d])
+                                 : 0.f;
+  }
+}
+
+// qkv: (N, T, 3E), out: (N, T, E), as above, E = H * hd for any hd >= 1.
+// grid (ceil(T / BQ), H * nsplit, N): block y = h * nsplit + c writes the
+// output columns c * HDC .. c * HDC + HDC - 1 of head h (nsplit = ceil(hd /
+// HDC)), and takes QK^T over ceil(hd / HDC) chunks of HDC columns; with one
+// chunk Q stays resident. Products and the softmax run in float32.
+template <typename T, int HDC>
 __global__ void __launch_bounds__(ATT_THREADS)
-attention_core_f32(const float* __restrict__ qkv, float* __restrict__ out, int seq, int H) {
+attention_core_simt(const T* __restrict__ qkv, T* __restrict__ out, int seq, int H, int hd,
+                    int nsplit, float scale) {
   extern __shared__ float smem[];
-  constexpr int LD = HD + 1;  // padded rows: lanes on different keys hit different banks
+  constexpr int LD = HDC + 1;  // padded rows: lanes on different keys hit different banks
   float* Qs = smem;            // BQ x LD
   float* KVs = Qs + BQ * LD;   // BKV x LD
-  float* Ss = KVs + BKV * LD;  // BQ x (seq + 1)
-  const int SLD = seq + 1;
-  const int E = H * HD;
+  float* Ss = KVs + BKV * LD;  // BQ x SLD: scores, then P
+  float* m_s = Ss + BQ * SLD;  // each row's running max
+  float* l_s = m_s + BQ;       // ... and running sum of exp
+  float* a_s = l_s + BQ;       // ... and this tile's rescale of the accumulators
+  const int E = H * hd;
   const long long rs = 3LL * E;
-  const int h = blockIdx.y;
-  const float* base = qkv + (long long)blockIdx.z * seq * rs;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const float sqrt_hd = sqrtf((float)HD);
-
-  for (int idx = tid; idx < BQ * HD; idx += ATT_THREADS) {
-    const int r = idx / HD, d = idx % HD;
-    Qs[r * LD + d] = (q0 + r < seq) ? base[(long long)(q0 + r) * rs + h * HD + d] : 0.f;
+  const int h = blockIdx.y / nsplit, c0 = (blockIdx.y % nsplit) * HDC;
+  const T* base = qkv + (long long)blockIdx.z * seq * rs;
+  const int q0 = blockIdx.x * BQ, tid = threadIdx.x;
+  const int nd = (hd + HDC - 1) / HDC;
+  if (tid < BQ) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
   }
+  if (nd == 1) load_rows<T, HDC>(Qs, base, rs, BQ, q0, h * hd, 0, seq, hd);
 
   // scores: thread (si, sj) computes keys sj and sj + 16 of each key tile
   const int si = tid / 16, sj = tid % 16;
-  for (int j0 = 0; j0 < seq; j0 += BKV) {
-    __syncthreads();
-    for (int idx = tid; idx < BKV * HD; idx += ATT_THREADS) {
-      const int r = idx / HD, d = idx % HD;
-      KVs[r * LD + d] = (j0 + r < seq) ? base[(long long)(j0 + r) * rs + E + h * HD + d] : 0.f;
-    }
-    __syncthreads();
-    const float* qrow = Qs + si * LD;
-    const float* k0 = KVs + sj * LD;
-    const float* k1 = KVs + (sj + 16) * LD;
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float q = qrow[d];
-      a0 += q * k0[d];
-      a1 += q * k1[d];
-    }
-    if (j0 + sj < seq) Ss[si * SLD + j0 + sj] = a0 / sqrt_hd;
-    if (j0 + sj + 16 < seq) Ss[si * SLD + j0 + sj + 16] = a1 / sqrt_hd;
-  }
-  __syncthreads();
-
-  // softmax in float32, one warp per two rows
   const int lane = tid & 31, warp = tid >> 5;
-  for (int r = warp * 2; r < warp * 2 + 2; ++r) {
-    float* srow = Ss + r * SLD;
-    float m = -INFINITY;
-    for (int j = lane; j < seq; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < seq; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < seq; j += 32) srow[j] = srow[j] / sum;
-  }
-
-  // P.V: thread owns CPT columns of RPT rows, accumulated in registers
-  constexpr int TC = HD < ATT_THREADS ? HD : ATT_THREADS;
-  constexpr int CPT = HD / TC;
+  // P.V: thread (rg, tc) owns CPT columns of RPT rows, in registers
+  constexpr int TC = HDC < ATT_THREADS ? HDC : ATT_THREADS;
+  constexpr int CPT = HDC / TC;
   constexpr int RG = ATT_THREADS / TC;
   constexpr int RPT = BQ / RG;
   const int tc = tid % TC, rg = tid / TC;
@@ -596,48 +600,89 @@ attention_core_f32(const float* __restrict__ qkv, float* __restrict__ out, int s
     for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
 
   for (int j0 = 0; j0 < seq; j0 += BKV) {
+    float a0 = 0.f, a1 = 0.f;
+    for (int dc = 0; dc < nd; ++dc) {
+      __syncthreads();  // the previous users of Qs, KVs and Ss are done
+      if (nd > 1) load_rows<T, HDC>(Qs, base, rs, BQ, q0, h * hd, dc * HDC, seq, hd);
+      load_rows<T, HDC>(KVs, base, rs, BKV, j0, E + h * hd, dc * HDC, seq, hd);
+      __syncthreads();
+      const float* qrow = Qs + si * LD;
+      const float* k0 = KVs + sj * LD;
+      const float* k1 = KVs + (sj + 16) * LD;
+#pragma unroll 8
+      for (int d = 0; d < HDC; ++d) {
+        const float q = qrow[d];
+        a0 += q * k0[d];
+        a1 += q * k1[d];
+      }
+    }
+    Ss[si * SLD + sj] = j0 + sj < seq ? a0 * scale : -INFINITY;
+    Ss[si * SLD + sj + 16] = j0 + sj + 16 < seq ? a1 * scale : -INFINITY;
     __syncthreads();
-    for (int idx = tid; idx < BKV * HD; idx += ATT_THREADS) {
-      const int r = idx / HD, d = idx % HD;
-      KVs[r * LD + d] =
-          (j0 + r < seq) ? base[(long long)(j0 + r) * rs + 2 * E + h * HD + d] : 0.f;
+    // this block's columns of V, while each warp updates two rows' softmax:
+    // lane j holds key j0 + j (BKV is the warp's width)
+    load_rows<T, HDC>(KVs, base, rs, BKV, j0, 2 * E + h * hd, c0, seq, hd);
+    for (int r = 2 * warp; r < 2 * warp + 2; ++r) {
+      const float sv = Ss[r * SLD + lane];
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(sv));
+      const float p = expf(sv - m_new);
+      Ss[r * SLD + lane] = p;
+      const float sum = warp_sum(p);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);  // 0 at the first tile
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+        a_s[r] = alpha;
+      }
     }
     __syncthreads();
     const int jn = min(BKV, seq - j0);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const float alpha = a_s[rg * RPT + r];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[r][c] *= alpha;
+    }
     for (int j = 0; j < jn; ++j) {
       float v[CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) v[c] = KVs[j * LD + tc + c * TC];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
-        const float p = Ss[(rg * RPT + r) * SLD + j0 + j];
+        const float p = Ss[(rg * RPT + r) * SLD + j];
 #pragma unroll
         for (int c = 0; c < CPT; ++c) acc[r][c] += p * v[c];
       }
     }
   }
-  float* ob = out + (long long)blockIdx.z * seq * E;
+  T* ob = out + (long long)blockIdx.z * seq * E + h * hd;
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int row = q0 + rg * RPT + r;
     if (row < seq) {
+      const float inv_l = 1.f / l_s[rg * RPT + r];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) ob[(long long)row * E + h * HD + tc + c * TC] = acc[r][c];
+      for (int c = 0; c < CPT; ++c) {
+        const int col = c0 + tc + c * TC;
+        if (col < hd) ob[(long long)row * E + col] = from_float<T>(acc[r][c] * inv_l);
+      }
     }
   }
 }
 
-template <int HD>
-cudaError_t launch_core_f32(const void* qkv, void* out, long long n, long long seq, int H,
-                            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(BQ + BKV) * (HD + 1) + (size_t)BQ * (seq + 1));
-  auto kernel = attention_core_f32<HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <typename T, int HDC>
+cudaError_t launch_core_simt(const void* qkv, void* out, long long n, long long seq, int H,
+                             int hd, float scale, int smem, cudaStream_t stream) {
+  if (smem < simt_smem(HDC) || smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  auto kernel = attention_core_simt<T, HDC>;
+  static bool ready[MAX_DEVICES] = {};
+  cudaError_t err = allow_max_smem(kernel, ready);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((seq + BQ - 1) / BQ), (unsigned)H, (unsigned)n);
-  kernel<<<grid, ATT_THREADS, smem, stream>>>(static_cast<const float*>(qkv),
-                                              static_cast<float*>(out), (int)seq, H);
+  const int nsplit = (hd + HDC - 1) / HDC;
+  dim3 grid((unsigned)((seq + BQ - 1) / BQ), (unsigned)(H * nsplit), (unsigned)n);
+  kernel<<<grid, ATT_THREADS, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out),
+                                              (int)seq, H, hd, nsplit, scale);
   return cudaGetLastError();
 }
 
@@ -664,28 +709,36 @@ extern "C" int dm_gemm_bias(int dtype, const void* X, const void* W, long long s
   return (int)cudaGetLastError();
 }
 
-// qkv (n, seq, 3 * H * hd) -> out (n, seq, H * hd), both contiguous. bf16:
-// `stages` ring stages of K / V tiles and `smem` bytes, as planned (float32
-// ignores both).
+// qkv (n, seq, 3 * H * hd) -> out (n, seq, H * hd), both contiguous; the
+// scores are multiplied by scale (1 / sqrt of the head dim before padding).
+// simt = 0: the bf16 wgmma core (hd 32, 64, 128, 256 or 512, with `stages`
+// ring stages); simt = 32 .. 512: the SIMT core in chunks of that many
+// columns (any hd). `smem` bytes as planned.
 extern "C" int dm_attention_core(int dtype, const void* qkv, void* out, long long n,
-                                 long long seq, int H, int hd, int stages, int smem,
-                                 void* stream) {
+                                 long long seq, int H, int hd, float scale, int simt,
+                                 int stages, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && simt == 0) {
     switch (hd) {
-      case 32: return (int)launch_core_sm90<32>(qkv, out, n, seq, H, stages, smem, s);
-      case 128: return (int)launch_core_sm90<128>(qkv, out, n, seq, H, stages, smem, s);
-      case 256: return (int)launch_core_sm90<256>(qkv, out, n, seq, H, stages, smem, s);
-      case 512: return (int)launch_core_sm90<512>(qkv, out, n, seq, H, stages, smem, s);
+      case 32: return (int)launch_core_sm90<32>(qkv, out, n, seq, H, scale, stages, smem, s);
+      case 64: return (int)launch_core_sm90<64>(qkv, out, n, seq, H, scale, stages, smem, s);
+      case 128: return (int)launch_core_sm90<128>(qkv, out, n, seq, H, scale, stages, smem, s);
+      case 256: return (int)launch_core_sm90<256>(qkv, out, n, seq, H, scale, stages, smem, s);
+      case 512: return (int)launch_core_sm90<512>(qkv, out, n, seq, H, scale, stages, smem, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
+  if (dtype == 1) {
+    if (simt != 512) return (int)cudaErrorInvalidValue;
+    return (int)launch_core_simt<bf16, 512>(qkv, out, n, seq, H, hd, scale, smem, s);
+  }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 32: return (int)launch_core_f32<32>(qkv, out, n, seq, H, s);
-    case 128: return (int)launch_core_f32<128>(qkv, out, n, seq, H, s);
-    case 256: return (int)launch_core_f32<256>(qkv, out, n, seq, H, s);
-    case 512: return (int)launch_core_f32<512>(qkv, out, n, seq, H, s);
+  switch (simt) {
+    case 32: return (int)launch_core_simt<float, 32>(qkv, out, n, seq, H, hd, scale, smem, s);
+    case 64: return (int)launch_core_simt<float, 64>(qkv, out, n, seq, H, hd, scale, smem, s);
+    case 128: return (int)launch_core_simt<float, 128>(qkv, out, n, seq, H, hd, scale, smem, s);
+    case 256: return (int)launch_core_simt<float, 256>(qkv, out, n, seq, H, hd, scale, smem, s);
+    case 512: return (int)launch_core_simt<float, 512>(qkv, out, n, seq, H, hd, scale, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,9 @@ FiLM-conditioned on a per-sample is-3D flag), the standard single-branch
 clamp to [-10, 10] and the sum-form KL. Module names follow the reference
 state dict (``encoder_2d.res1_1.norm1.weight``,
 ``decoder_3d.film_in.mlp.0.weight``, ...). Stochastic paths draw from a
-caller's ``torch.Generator``. ``AttentionBlock`` is not ported yet.
+caller's ``torch.Generator``. ``AttentionBlock`` (GroupNorm(32) through K1,
+self-attention over D*H*W tokens through K2, residual) is part of the public
+surface, though the final encoder and decoder do not use it.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.basic import get_padding
 from ..ops.resize import upsample_nearest_hw
-from .layers import Conv3d, GroupNorm, Linear, init_module_, uniform_
+from .layers import (Conv3d, GroupNorm, Linear, MultiheadSelfAttention, init_module_,
+                     uniform_)
 
 _ASYM_PAD = ((1, 1), (0, 1), (0, 1))  # (D, H, W) pre-pad for the stride-(1,2,2) convs
 
@@ -111,6 +114,24 @@ class ConditionalResidualBlock(ResidualBlock):
         if self.residual_layer is not None:
             x = self.residual_layer(x)
         return h + x
+
+
+class AttentionBlock(nn.Module):
+    """GroupNorm(32) (no activation), full self-attention over the D*H*W
+    tokens, then the residual; (N, C, D, H, W) in and out. Parameters
+    ``norm.*`` and ``attention.*`` (the JAX ``AttentionBlock``'s ``norm`` and
+    ``attention``, through ``utils/weights.export_attention_block``)."""
+
+    def __init__(self, channels: int, num_heads: int = 2):
+        super().__init__()
+        self.norm = GroupNorm(32, channels)
+        self.attention = MultiheadSelfAttention(channels, num_heads)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, d, h, w = x.shape
+        y = self.norm(x).flatten(2).transpose(1, 2).contiguous()  # (N, DHW, C)
+        y = self.attention(y)
+        return x + y.transpose(1, 2).reshape(b, c, d, h, w)
 
 
 def _check_condition(conditional: bool, condition, what: str) -> None:

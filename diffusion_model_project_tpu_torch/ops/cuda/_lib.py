@@ -34,7 +34,7 @@ _SIGNATURES = {
     "dm_groupnorm_act": [_P, _P, _P, _P, _P, _P, _F, _P],
     "dm_groupnorm_max_cluster": [_P],
     "dm_gemm_bias": [_I, _P, _P, _L, _L, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P],
-    "dm_attention_core": [_I, _P, _P, _L, _L, _I, _I, _I, _I, _P],
+    "dm_attention_core": [_I, _P, _P, _L, _L, _I, _I, _F, _I, _I, _I, _P],
     "dm_conv3x3": [_I, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P],
 }
 

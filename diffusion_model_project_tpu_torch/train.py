@@ -1,6 +1,6 @@
 """Diffusion training CLI of the port (the port's copy of the root
 ``train.py``), flag-compatible with the reference Diffusion_model/train.py:
-modes train and CV (``optimize`` is not ported yet and is refused).
+modes train, CV and optimize (a TPE search, ``study.json`` in ``--save-dir``).
 
     python -m diffusion_model_project_tpu_torch.train \\
         --root-dir path/to/dataset_3d \\
@@ -22,12 +22,14 @@ import os.path as osp
 import sys
 
 from .data import get_loader
-from .training.train_diffusion import find_resumable_run, train
+from .training.train_diffusion import find_resumable_run, optimize, train
 from .utils.config import parser, process_args, refuse_unported, run_descr
 from .utils.preempt import GracefulShutdown
 
 
 def _loaders(args, k_folds=None):
+    """``get_loader`` with the CLI's dataset flags (an optimize trial's
+    loader: its batch size is the trial's)."""
     return get_loader(root_dir=args.root_dir, batch_size=args.batch_size,
                       shuffle=args.shuffle, augment=args.augment, k_folds=k_folds,
                       use_3d=args.use_3d)
@@ -80,8 +82,10 @@ def main(argv=None) -> None:
         if args.mode == "train":
             train_loader, val_loader, test_loader = _loaders(args)[0]
             train(args, train_loader, val_loader, test_loader, should_stop=shutdown)
-        else:  # CV; optimize was refused above
+        elif args.mode == "CV":
             run_cv(args, shutdown)
+        elif args.mode == "optimize":
+            optimize(args, _loaders, should_stop=shutdown)
 
 
 if __name__ == "__main__":

@@ -9,12 +9,16 @@ after the reference Diffusion_model/src/helper.py):
   - run_epoch: one training epoch and one validation pass, with the physics
     and velocity losses and their metrics (helper.py:179-560); updates the
     UNet in place.
+  - flip_variant_draws, build_latent_cache, run_epoch_cached: --cache-latents
+    (a card-resident cache of the frozen VAE's latents, UNet-only epochs).
+    One device: the JAX package's mesh-sharded cache rows have no counterpart.
 """
 from __future__ import annotations
 
 import json
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..losses.physics import PhysicsLoss
@@ -241,3 +245,141 @@ def run_epoch(
     # so log.json keeps the reference's key set
     all_metrics = {**acc, **{f"loss_{k}": v for k, v in phys_components.items()}}
     return avg_train_loss, avg_val_loss, all_metrics
+
+
+def flip_variant_draws(dataset, epoch: int) -> np.ndarray:
+    """The dataset's per-sample augmentation draws for ``epoch``, replayed
+    without reading a sample: v[i] = flip_h + 2 * flip_z from the same
+    (seed, epoch, idx) stream, in the same order, that
+    ``MicroFlowDataset._augment_sample`` consumes, so the flip-variant cache
+    selects the sample the regular loader would have produced."""
+    dataset.set_epoch(epoch)
+    out = np.empty(len(dataset), np.int32)
+    for i in range(len(dataset)):
+        rng = dataset._aug_rng(i)
+        fh = rng.random() < 0.5
+        fz = dataset.use_3d and rng.random() < 0.5
+        out[i] = int(fh) + 2 * int(fz)
+    return out
+
+
+def _natural_order_batches(loader):
+    """A loader's dataset in index order (whatever its shuffle state), so
+    cache row i is sample i: the identity the flip-variant draws key on."""
+    ds, bs = loader.dataset, loader.batch_size
+    n = len(ds)
+    for k in range(0, n, bs):
+        samples = [ds[i] for i in range(k, min(k + bs, n))]
+        yield {key: np.stack([s[key] for s in samples]) for key in samples[0]}
+
+
+#: variant-major row order of the flip cache: row = v * n + i with
+#: v = flip_h + 2 * flip_z
+FLIP_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
+
+
+def build_latent_cache(loaders, predictor, *, flip_variants: bool = False):
+    """One pass of (train_loader, val_loader) through the frozen VAE ->
+    (train_cache, val_cache): dicts of x0 / z / m tensors on the predictor's
+    device (``steps.precompute_latent_cache``), rows in dataset index order.
+
+    ``flip_variants`` (``--cache-latents --augment``) also encodes every
+    (flip_h, flip_z) variant of the TRAIN samples, variant-major (row =
+    v * n + i, four times the cache); the val split is never augmented."""
+    from .steps import flip_variant_batch, precompute_latent_cache
+
+    device = predictor.device
+    out = []
+    for name, loader in zip(("train", "val"), loaders):
+        variants = (FLIP_VARIANTS if flip_variants and name == "train"
+                    else FLIP_VARIANTS[:1])
+        # encode the unaugmented samples: the variants are applied on the card
+        ds = loader.dataset
+        saved_augment = getattr(ds, "augment", False)
+        if saved_augment:
+            ds.augment = False
+        try:
+            parts = {v: [] for v in variants}
+            for data in _natural_order_batches(loader):
+                raw = _batch_dict(data, device)
+                for v in variants:
+                    parts[v].append(precompute_latent_cache(
+                        predictor, flip_variant_batch(raw, *v) if any(v) else raw))
+        finally:
+            if saved_augment:
+                ds.augment = saved_augment
+        if not parts[variants[0]]:
+            # an empty val split: an empty cache keeps the val loop a no-op;
+            # an empty train split is an error
+            if not out:
+                raise ValueError("--cache-latents: the train loader yielded no batches")
+            out.append({k: v[:0] for k, v in out[0].items()})
+            print(f"  latent cache [{name}]: 0 samples (empty split)")
+            continue
+        cache = {k: torch.cat([p[k] for v in variants for p in parts[v]], dim=0)
+                 for k in parts[variants[0]][0]}
+        mb = sum(v.numel() * v.element_size() for v in cache.values()) / 2**20
+        aug = f" ({len(variants)} flip variants)" if len(variants) > 1 else ""
+        print(f"  latent cache [{name}]: {cache['x0'].shape[0]} rows{aug}, {mb:.0f} MB on "
+              f"{device}")
+        out.append(cache)
+    return tuple(out)
+
+
+def run_epoch_cached(
+    caches,
+    predictor,
+    optimizer,
+    *,
+    generator: torch.Generator,
+    batch_size: int,
+    cost_name: str = "normalized_mse_loss_per_component",
+    should_stop: Optional[Callable[[], bool]] = None,
+    variant_idx=None,
+    n_train: Optional[int] = None,
+    n_val: Optional[int] = None,
+):
+    """The cached-latent counterpart of :func:`run_epoch` (plain
+    noise-prediction configuration; the trainer refuses the rest). The
+    epoch's shuffle is a ``torch.randperm`` of the cache rows drawn from
+    ``generator`` on its device, each batch a gather of rows, and each step
+    then draws its noise and timesteps from ``generator``; the losses come
+    to the host once, at the end.
+
+    ``variant_idx``: the epoch's flip variant of each sample
+    (:func:`flip_variant_draws`) over a variant-major flip cache, where
+    sample i of variant v is row v * n + i.
+
+    Returns (avg_train_loss, avg_val_loss, {})."""
+    from .steps import make_cached_latent_eval_step, make_cached_latent_train_step
+
+    train_cache, val_cache = caches
+    train_step = make_cached_latent_train_step(optimizer, cost_name=cost_name)
+    eval_step = make_cached_latent_eval_step(cost_name=cost_name)
+    device = train_cache["x0"].device
+    n = int(n_train) if n_train is not None else int(train_cache["x0"].shape[0])
+    perm = torch.randperm(n, generator=generator, device=generator.device).to(device)
+    v_dev = (None if variant_idx is None
+             else torch.as_tensor(np.asarray(variant_idx, np.int64)).to(device))
+    auxes = []
+    for k in range(0, n, batch_size):
+        _stop(should_stop, f"cached train batch {k // batch_size}")
+        idx = perm[k:k + batch_size]
+        if v_dev is not None:  # variant-major flip cache: row = v * n + i
+            idx = idx + n * v_dev[idx]
+        batch = {key: v[idx] for key, v in train_cache.items()}
+        auxes.append(train_step(predictor, batch, generator))
+    running = sum(a["primary_loss"] for a in _fetch(auxes))
+    avg_train_loss = running / max(len(auxes), 1)
+
+    m = int(n_val) if n_val is not None else int(val_cache["x0"].shape[0])
+    val_metricses = []
+    for k in range(0, m, batch_size):
+        _stop(should_stop, f"cached val batch {k // batch_size}")
+        batch = {key: v[k:min(k + batch_size, m)] for key, v in val_cache.items()}
+        val_metricses.append(eval_step(predictor, batch, generator))
+    if not val_metricses:
+        # NaN, not 0.0: an empty val split must not win best-model gating
+        return avg_train_loss, float("nan"), {}
+    avg_val_loss = sum(mm["val_loss"] for mm in _fetch(val_metricses)) / len(val_metricses)
+    return avg_train_loss, avg_val_loss, {}

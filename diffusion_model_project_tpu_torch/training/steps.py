@@ -182,3 +182,122 @@ def make_diffusion_eval_step(*, cost_name: str = "normalized_mse_loss_per_compon
         return metrics
 
     return eval_step
+
+
+# ----------------------------------------------------------------------------
+# Cached latents (--cache-latents). The VAE is frozen during diffusion
+# training, so the target latents (E3D mu of U) and the conditioning (E2D mu
+# of U_2d, the pre-processed mask resized to the latent grid) are the same in
+# every epoch: one encode pass fills a card-resident cache, and each epoch
+# then runs only the UNet. The loss draws its noise, then its timesteps, as
+# diffusion_loss_fn does through predictor.forward, so under the same draws
+# it equals the uncached loss. Only the plain noise-prediction configuration
+# (the trainer refuses physics and velocity losses, which decode full-res
+# velocity every step). Flip augmentation runs through a 4-variant cache:
+# latents of flipped volumes are not flips of latents, so every (flip_h,
+# flip_z) encode is cached, variant-major, and the dataset's own
+# augmentation draws pick the rows (helper.flip_variant_draws).
+# ----------------------------------------------------------------------------
+
+
+def flip_variant_batch(batch: Dict[str, torch.Tensor], flip_h: bool,
+                       flip_z: bool) -> Dict[str, torch.Tensor]:
+    """The dataset's flip augmentation on a raw batch {'img','U_2d','U'} of
+    (B, S, C, H, W) tensors, as ``MicroFlowDataset._augment_sample`` applies
+    it to a sample: flip-H mirrors H and negates vy (channel 1) of both
+    velocity tensors; flip-Z mirrors the slice axis and negates vz (channel 2)."""
+    def flip(x, velocity):
+        if flip_h:
+            x = torch.flip(x, dims=(-2,))
+        if flip_z:
+            x = torch.flip(x, dims=(1,))
+        if velocity:
+            sign = torch.ones(x.shape[2], dtype=x.dtype)
+            if flip_h:
+                sign[1] = -1.0
+            if flip_z:
+                sign[2] = -1.0
+            x = x * sign.to(x.device).reshape(1, 1, -1, 1, 1)
+        return x
+
+    return {"img": flip(batch["img"], velocity=False),
+            "U_2d": flip(batch["U_2d"], velocity=True),
+            "U": flip(batch["U"], velocity=True)}
+
+
+@torch.no_grad()
+def precompute_latent_cache(predictor, batch: Dict) -> Dict[str, torch.Tensor]:
+    """One frozen-VAE encode pass over a raw batch: x0 and z
+    (B, ld, C, lh, lw) and m (B, ld, 1, lh, lw), float32 on the predictor's
+    device (channels-first; the JAX step's are channels-last)."""
+    img, v2d, v3d = batch_tensors(batch, predictor.device).values()
+    x_start = predictor.encode_target(v3d)                  # (B, ld, C, lh, lw)
+    z, m = predictor.prepare_conditioning(img, v2d)          # (B*ld, C | 1, lh, lw)
+    b, ld = x_start.shape[:2]
+    return {"x0": x_start, "z": z.reshape(b, ld, *z.shape[1:]),
+            "m": m.reshape(b, ld, *m.shape[1:])}
+
+
+def cached_latent_loss_fn(
+    predictor,
+    batch: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    *,
+    noise: Optional[torch.Tensor] = None,
+    t: Optional[torch.Tensor] = None,
+    cost_name: str = "normalized_mse_loss_per_component",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch keys 'x0' / 'z' (B, ld, C, lh, lw), 'm' (B, ld, 1, lh, lw) from
+    :func:`precompute_latent_cache`. The noise (B*ld, C, lh, lw) and the
+    timesteps (B*ld,) come from ``noise`` / ``t`` where given, else from
+    ``generator``, noise first, as ``predictor.forward`` draws them; the loss
+    then equals :func:`diffusion_loss_fn`'s for the plain configuration."""
+    cost = cost_function(cost_name)
+    x0, z, m = batch["x0"], batch["z"], batch["m"]
+    b, ld = x0.shape[:2]
+    flat = lambda a: a.reshape((b * ld,) + tuple(a.shape[2:]))  # noqa: E731
+    x0f, zf, mf = flat(x0), flat(z), flat(m)
+    if (noise is None or t is None) and generator is None:
+        raise ValueError("cached_latent_loss_fn needs a generator when noise or t is not given")
+    if noise is None:
+        noise = torch.randn(x0f.shape, generator=generator, device=generator.device)
+    if t is None:
+        t = torch.randint(0, predictor.num_timesteps, (b * ld,), generator=generator,
+                          device=generator.device)
+    noise = noise.to(x0f.device, torch.float32).reshape(x0f.shape)
+    t = t.to(x0f.device, torch.int64)
+    x_t = predictor.scheduler.q_sample(x0f, t, noise)
+    loss = cost(predictor._unet_eps(x_t, zf, mf, t), noise)
+    aux = {"noise_loss": loss.detach(), "primary_loss": loss.detach(), "loss": loss.detach()}
+    return loss, aux
+
+
+def make_cached_latent_train_step(
+    optimizer, *, cost_name: str = "normalized_mse_loss_per_component",
+) -> Callable:
+    """``train_step(predictor, cached_batch, generator=None, *, noise=None,
+    t=None) -> aux``: one optimizer step of the UNet over cached latents."""
+    def train_step(predictor, batch, generator=None, *, noise=None, t=None):
+        optimizer.zero_grad(set_to_none=True)
+        with train_trace():
+            loss, aux = cached_latent_loss_fn(predictor, batch, generator, noise=noise, t=t,
+                                              cost_name=cost_name)
+            loss.backward()
+        optimizer.step()
+        return aux
+
+    return train_step
+
+
+def make_cached_latent_eval_step(
+    *, cost_name: str = "normalized_mse_loss_per_component",
+) -> Callable:
+    """The validation loss over cached latents (the quantity the regular eval
+    step computes for the plain configuration), under ``torch.no_grad()``."""
+    @torch.no_grad()
+    def eval_step(predictor, batch, generator=None, *, noise=None, t=None):
+        _, aux = cached_latent_loss_fn(predictor, batch, generator, noise=noise, t=t,
+                                       cost_name=cost_name)
+        return {"val_loss": aux["noise_loss"]}
+
+    return eval_step

@@ -6,9 +6,12 @@ per-epoch exponential LR decay (gamma=0.95499), an optional EMA of the
 weights, per-epoch ``model.msgpack`` + ``best_model.msgpack`` + ``log.json``
 (full config, losses, physics-metric history) + ``train_state.msgpack``
 written in the JAX package's formats, full-state ``--resume``, a graceful
-preemption stop, and the test evaluation with the best checkpoint. Modes
-train and CV live in the port's ``train.py``; ``optimize`` (TPE search,
-MedianPruner) is not ported yet.
+preemption stop, and the test evaluation with the best checkpoint.
+``--cache-latents`` encodes the dataset once through the frozen VAE into a
+card-resident cache and runs UNet-only epochs. Modes train and CV live in
+the port's ``train.py``; ``optimize`` (TPE search over batch size, kernel
+size, level count and learning rate, with Optuna's MedianPruner rule,
+``study.json`` resumable by trial) is :func:`optimize` here.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from ..utils.checkpoint import (frozen_vae_params, load_predictor_state, load_tr
                                 save_predictor, save_train_state)
 from ..utils.config import make_log_folder, process_args, refuse_unported
 from ..utils.device import resolve_device
-from .helper import (_PHYSICS_LOSS_KEYS, _PHYSICS_METRIC_KEYS, _batch_dict, run_epoch,
+from .helper import (_PHYSICS_LOSS_KEYS, _PHYSICS_METRIC_KEYS, _batch_dict,
+                     build_latent_cache, flip_variant_draws, run_epoch, run_epoch_cached,
                      set_model)
 from .steps import make_diffusion_eval_step
 
@@ -174,11 +178,13 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
 
 
-def train(args, train_loader, val_loader, test_loader=None, *, seed: int = 0,
-          should_stop=None):
+def train(args, train_loader, val_loader, test_loader=None, *, report_fn=None,
+          seed: int = 0, should_stop=None):
     """Train the UNet of a latent-diffusion predictor for
     ``args.num_epochs`` epochs on ``args.device`` (default cuda). Returns
     (avg_train_loss, avg_val_loss) of the last epoch.
+    ``report_fn(epoch, val_loss)`` is called after each epoch's checkpoints
+    and may raise (``TrialPruned``) to prune a hyperparameter-search trial.
 
     ``should_stop`` (e.g. a utils.preempt.GracefulShutdown installed by the
     CLI) is polled before every batch and after every epoch: when it turns
@@ -242,6 +248,27 @@ def train(args, train_loader, val_loader, test_loader=None, *, seed: int = 0,
         print(f"Resumed from {state_path} at epoch {start_epoch} "
               f"(best val loss {best_loss:.6f})")
 
+    # --cache-latents: the VAE is frozen, so the target and conditioning
+    # latents are the same in every epoch: encode the dataset once into a
+    # cache on the card and run UNet-only epochs (training/steps.py)
+    cache_latents = bool(getattr(args, "cache_latents", False))
+    if cache_latents:
+        if (td["lambda_div"] or td["lambda_flow"] or td["lambda_smooth"]
+                or td["lambda_laplacian"] or td["lambda_velocity"]
+                or td["velocity_loss_primary"]):
+            raise ValueError(
+                "--cache-latents supports the plain noise-prediction "
+                "configuration only: physics/velocity losses decode full-"
+                "resolution velocity every step and need the raw volumes")
+        # --augment: every flip variant is encoded once, and each epoch the
+        # dataset's own augmentation draws select the rows
+        cache_augment = bool(getattr(getattr(train_loader, "dataset", None), "augment", False))
+        t_cache = time.time()
+        latent_caches = build_latent_cache((train_loader, val_loader), predictor,
+                                           flip_variants=cache_augment)
+        print(f"Latent caches built in {time.time() - t_cache:.1f}s (one frozen-VAE encode "
+              f"pass{', 4 flip variants' if cache_augment else ''})")
+
     model_path = osp.join(log_folder, "model.msgpack")
     best_model_path = osp.join(log_folder, "best_model.msgpack")
     log_path = osp.join(log_folder, "log.json")
@@ -287,21 +314,31 @@ def train(args, train_loader, val_loader, test_loader=None, *, seed: int = 0,
             profile_ctx = profile_trace(args.profile_dir)
         try:
             with profile_ctx:
-                avg_train_loss, avg_val_loss, physics_metrics = run_epoch(
-                    (train_loader, val_loader), predictor, optimizer,
-                    generator=generator,
-                    cost_name=td["cost_function"],
-                    lambda_div=td["lambda_div"],
-                    lambda_flow=td["lambda_flow"],
-                    lambda_smooth=td["lambda_smooth"],
-                    lambda_laplacian=td["lambda_laplacian"],
-                    physics_loss_freq=td["physics_loss_freq"],
-                    lambda_velocity=td["lambda_velocity"],
-                    weight_u=td["weight_u"], weight_v=td["weight_v"],
-                    weight_w=td["weight_w"],
-                    velocity_loss_primary=td["velocity_loss_primary"],
-                    should_stop=should_stop,
-                )
+                if cache_latents:
+                    variant_idx = (flip_variant_draws(train_loader.dataset, epoch)
+                                   if cache_augment else None)
+                    avg_train_loss, avg_val_loss, physics_metrics = run_epoch_cached(
+                        latent_caches, predictor, optimizer, generator=generator,
+                        batch_size=param_dict["dataset"]["batch_size"],
+                        cost_name=td["cost_function"], should_stop=should_stop,
+                        variant_idx=variant_idx, n_train=len(train_loader.dataset),
+                        n_val=len(val_loader.dataset))
+                else:
+                    avg_train_loss, avg_val_loss, physics_metrics = run_epoch(
+                        (train_loader, val_loader), predictor, optimizer,
+                        generator=generator,
+                        cost_name=td["cost_function"],
+                        lambda_div=td["lambda_div"],
+                        lambda_flow=td["lambda_flow"],
+                        lambda_smooth=td["lambda_smooth"],
+                        lambda_laplacian=td["lambda_laplacian"],
+                        physics_loss_freq=td["physics_loss_freq"],
+                        lambda_velocity=td["lambda_velocity"],
+                        weight_u=td["weight_u"], weight_v=td["weight_v"],
+                        weight_w=td["weight_w"],
+                        velocity_loss_primary=td["velocity_loss_primary"],
+                        should_stop=should_stop,
+                    )
         except PreemptStop as e:
             print(f"Epoch {epoch} abandoned ({e}); state is at epoch "
                   f"{epoch - 1 if epoch else 'none (no epoch completed)'}")
@@ -368,6 +405,21 @@ def train(args, train_loader, val_loader, test_loader=None, *, seed: int = 0,
         print(f"Epoch {epoch}: train_loss={avg_train_loss:.6f} | "
               f"val_loss={avg_val_loss:.6f} | time={dtime:.2f} s")
 
+        if report_fn is not None:
+            try:
+                report_fn(epoch, avg_val_loss)
+            except BaseException:
+                # pruning unwinds the loop as routine control flow (a search
+                # runs many train() calls in one process): drain and release
+                # the writer thread without masking the prune signal
+                try:
+                    ckpt_writer.close()
+                except RuntimeError:
+                    pass
+                finally:
+                    tb.close()
+                raise
+
         if should_stop is not None and should_stop():
             # a graceful stop leaves THIS epoch on disk even when --ckpt-freq
             # gated the regular write above
@@ -413,6 +465,10 @@ def train(args, train_loader, val_loader, test_loader=None, *, seed: int = 0,
     return avg_train_loss, avg_val_loss
 
 
+class TrialPruned(Exception):
+    pass
+
+
 def find_resumable_run(pattern: str, require_state: bool = True):
     """Newest run dir matching glob ``pattern`` with a readable log.json.
 
@@ -439,3 +495,169 @@ def find_resumable_run(pattern: str, require_state: bool = True):
             continue
         return d, done
     return None, 0
+
+
+class MedianPruner:
+    """Optuna's MedianPruner rule, the default pruner of the reference's
+    study: a trial is pruned at epoch e when its best intermediate value so
+    far is strictly worse (greater) than the median of the completed
+    trials' values at epoch e. Pruning is off until ``n_startup_trials``
+    trials have completed, and for the first ``n_warmup_steps`` epochs of
+    each trial."""
+
+    def __init__(self, n_startup_trials: int = 5, n_warmup_steps: int = 0):
+        self.n_startup_trials = n_startup_trials
+        self.n_warmup_steps = n_warmup_steps
+        self._completed: list = []
+
+    def make_report_fn(self):
+        """A trial's ``report_fn(epoch, value)``; raises TrialPruned to prune."""
+        intermediates: dict = {}
+
+        def report(epoch: int, value: float):
+            intermediates[epoch] = value
+            if len(self._completed) < self.n_startup_trials:
+                return
+            if epoch < self.n_warmup_steps:
+                return
+            at_step = [t[epoch] for t in self._completed if epoch in t]
+            if not at_step:
+                return
+            best_so_far = min(v for e, v in intermediates.items() if e <= epoch)
+            if best_so_far > float(np.median(at_step)):
+                raise TrialPruned(
+                    f"epoch {epoch}: best {best_so_far:.6f} > median "
+                    f"{float(np.median(at_step)):.6f} of {len(at_step)} trials")
+
+        report.intermediates = intermediates
+        return report
+
+    def complete_trial(self, report_fn):
+        self._completed.append(dict(report_fn.intermediates))
+
+    def seed_completed(self, intermediates: dict):
+        """Re-feed one recorded trial's {epoch: value} curve (study resume)."""
+        self._completed.append({int(e): float(v) for e, v in intermediates.items()})
+
+
+def optimize(args, get_loader_fn, n_trials: Optional[int] = None,
+             n_startup_trials: int = 5, should_stop=None):
+    """The reference's Optuna study (its default sampler is TPE): the same
+    search space (batch size, odd kernel size, level count -> feature stack,
+    log-uniform learning rate), MedianPruner's rule, and the independent-
+    Parzen TPE of ``training/tpe.py`` (``--search-algo random``: random
+    search). ``should_stop`` stops the study at the next trial boundary; the
+    running trial stops within one step through train() and is not recorded.
+
+    Crash-safe: a restarted study reloads ``study.json``, skips the recorded
+    trials (any retried draw is a pure function of (seed, trial index,
+    recorded history)), re-feeds the pruner their intermediate values, and
+    resumes an interrupted trial in place from its run dir's
+    train_state.msgpack, replaying its logged epochs into the pruner."""
+    from ..utils.config import run_descr
+    from .tpe import RandomSampler, TPESampler, diffusion_search_space
+
+    space = diffusion_search_space(args)
+    algo = getattr(args, "search_algo", "tpe") or "tpe"
+    sampler = (RandomSampler(space, seed=2024) if algo == "random"
+               else TPESampler(space, seed=2024))
+    n_trials = n_trials or args.n_trials
+    study_path = osp.join(args.save_dir, "study.json")
+    results = []
+    if osp.exists(study_path):
+        with open(study_path) as f:
+            results = json.load(f)
+        if results:
+            print(f"Resuming study: {len(results)} trials already recorded in {study_path}")
+    pruner = MedianPruner(n_startup_trials=n_startup_trials)
+    legacy = 0
+    for r in results:
+        if r["state"] == "COMPLETE":
+            inter = r.get("intermediates", {})
+            if inter:
+                pruner.seed_completed(inter)
+            else:
+                # an empty curve would count toward n_startup_trials while
+                # adding nothing to the medians
+                legacy += 1
+    if legacy:
+        print(f"{legacy} recorded trials predate intermediate-value persistence; "
+              f"pruning medians rebuild from new trials only")
+
+    history = [(r["params"], r["value"]) for r in results]
+    for trial_idx in range(n_trials):
+        if should_stop is not None and should_stop():
+            print(f"Study preempted after {trial_idx} recorded trials; "
+                  f"{study_path} is current.", flush=True)
+            break
+        if trial_idx < len(results):
+            continue  # recorded: its params feed the sampler through `history`
+        params = sampler.suggest(trial_idx, history)
+        args.batch_size = int(params["batch_size"])
+        args.kernel_size = int(params["kernel_size"])
+        levels = int(params["levels"])
+        factors = [2 ** v for v in range(levels)]
+        if args.top_bottom:
+            args.features = [args.top_feature_channels * v for v in factors]
+        else:
+            args.features = [int(args.bottom_feature_channels / v) for v in reversed(factors)]
+        args.learning_rate = float(params["learning_rate"])
+
+        # an interrupted attempt of THIS trial left a run dir: resume it. The
+        # match key is the whole hyperparameter blob of the dirname (minus
+        # the epoch budget), so another trial's or another mode's run dir in
+        # save_dir is never resumed into this config
+        descr = run_descr(process_args(args), with_epochs=False)
+        args.resume, _ = find_resumable_run(osp.join(args.save_dir, f"*{descr}*"))
+        if args.resume:
+            print(f"Trial {trial_idx} resuming from {args.resume}")
+
+        train_loader, val_loader, test_loader = get_loader_fn(args)[0]
+        report_fn = pruner.make_report_fn()
+        if args.resume:
+            # replay the interrupted attempt's epochs so pruning sees the whole curve
+            try:
+                with open(osp.join(args.resume, "log.json")) as f:
+                    prev = json.load(f)
+                for e, v in zip(prev.get("epoch", []), prev.get("val_loss", [])):
+                    report_fn.intermediates[int(e)] = float(v)
+            except (OSError, ValueError):
+                pass
+        try:
+            _, val_loss = train(args, train_loader, val_loader, test_loader,
+                                report_fn=report_fn, should_stop=should_stop)
+            if should_stop is not None and should_stop():
+                print(f"Trial {trial_idx} interrupted mid-run; not recorded.")
+                break
+            state = "COMPLETE"
+            pruner.complete_trial(report_fn)
+        except TrialPruned as e:
+            print(f"Trial {trial_idx} pruned: {e}")
+            val_loss, state = float("nan"), "PRUNED"
+        finally:
+            args.resume = None
+        results.append({
+            "trial": trial_idx, "state": state, "value": val_loss,
+            "params": {"batch_size": args.batch_size, "kernel_size": args.kernel_size,
+                       "levels": levels, "learning_rate": args.learning_rate},
+            # persisted so that a resumed study rebuilds the pruner's medians
+            "intermediates": dict(report_fn.intermediates),
+        })
+        history.append((results[-1]["params"], results[-1]["value"]))
+        with open(study_path, "w") as f:
+            json.dump(results, f, indent=2)
+
+    complete = [r for r in results if r["state"] == "COMPLETE"]
+    pruned = [r for r in results if r["state"] == "PRUNED"]
+    best = min(complete, key=lambda r: r["value"]) if complete else None
+    print("Study statistics:")
+    print("\t Number of finished trials: ", len(results))
+    print("\t Number of pruned trials: ", len(pruned))
+    print("\t Number of complete trials: ", len(complete))
+    if best:
+        print("Best trial:")
+        print("\t Value: ", best["value"])
+        print("\t Params:")
+        for key, value in best["params"].items():
+            print(f"\t {key}: {value}")
+    return results

@@ -286,8 +286,6 @@ def make_log_folder(param_dict: dict) -> str:
 
 
 # flags whose feature is not ported yet, and the ROADMAP.md item that ports it
-_OPTIMIZE = "ROADMAP.md Queue 1 item 6a (--mode optimize: training/tpe.py, MedianPruner)"
-_CACHE = "ROADMAP.md Queue 1 item 6b (--cache-latents: the latent and flip-variant caches)"
 _PARALLEL = "ROADMAP.md Queue 1 item 8 (parallel: DDP, FSDP, process groups)"
 
 
@@ -296,10 +294,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
     feature the port does not have yet, with its ROADMAP.md item: such a
     flag is refused, never silently ignored."""
     found = []
-    if args.mode == "optimize":
-        found.append(("--mode optimize", _OPTIMIZE))
-    if args.cache_latents:
-        found.append(("--cache-latents", _CACHE))
     if args.model_parallel > 1:
         found.append((f"--model-parallel {args.model_parallel}", _PARALLEL))
     if args.fsdp:

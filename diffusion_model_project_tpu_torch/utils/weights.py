@@ -137,6 +137,19 @@ def _self_attention(params: dict, key: str, sd: StateDict) -> None:
     sd[f"{key}.proj_out.bias"] = _a(params["proj_out_bias"])
 
 
+def export_attention_block(params: dict) -> StateDict:
+    """A flax VAE ``AttentionBlock``'s params -> the port's ``AttentionBlock``
+    state dict (``norm.*``, ``attention.*``)."""
+    sd: StateDict = {}
+    _norm(params["norm"], "norm", sd)
+    mha = params["attention"]
+    sd["attention.in_proj_weight"] = _linear_w(mha["in_proj_weight"])
+    sd["attention.in_proj_bias"] = _a(mha["in_proj_bias"])
+    sd["attention.out_proj.weight"] = _linear_w(mha["out_proj_weight"])
+    sd["attention.out_proj.bias"] = _a(mha["out_proj_bias"])
+    return sd
+
+
 def export_unet(params: dict) -> StateDict:
     """Flax UNet params -> UNet state dict (levels inferred from the keys)."""
     sd: StateDict = {}
@@ -291,6 +304,15 @@ def _self_attention_to_flax(sd, key: str) -> dict:
                     "out_proj_bias": _t(sd[f"{key}.mha.out_proj.bias"])},
             "proj_out_weight": _t(sd[f"{key}.proj_out.weight"])[..., 0].t(),
             "proj_out_bias": _t(sd[f"{key}.proj_out.bias"])}
+
+
+def attention_block_to_flax(sd) -> dict:
+    """Inverse of :func:`export_attention_block`."""
+    return {"norm": _norm_to_flax(sd, "norm"),
+            "attention": {"in_proj_weight": _t(sd["attention.in_proj_weight"]).t(),
+                          "in_proj_bias": _t(sd["attention.in_proj_bias"]),
+                          "out_proj_weight": _t(sd["attention.out_proj.weight"]).t(),
+                          "out_proj_bias": _t(sd["attention.out_proj.bias"])}}
 
 
 def unet_to_flax(sd) -> dict:

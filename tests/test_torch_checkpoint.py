@@ -25,7 +25,9 @@ from diffusion_model_project_tpu.diffusion.predictor import (
     LatentDiffusionPredictor as JPredictor)
 from diffusion_model_project_tpu.utils import checkpoint as jckpt
 from diffusion_model_project_tpu.utils import torch_export as te
+from diffusion_model_project_tpu.utils import torch_import as ti
 
+from diffusion_model_project_tpu_torch.models.vae import DualBranchVAE
 from diffusion_model_project_tpu_torch.utils import checkpoint, flax_msgpack, weights
 
 from test_torch_models import randomize_zero_inits
@@ -117,10 +119,17 @@ def test_msgpack_decoder_refuses_other_types():
 
 
 def _jax_predictor(vae_conditional: bool, seed: int):
+    """A JAX predictor whose VAE params come from a seeded port VAE through
+    the JAX package's own importer (flax's init of a conditional VAE alone
+    costs about 8 s on the CPU); its UNet is flax-initialized."""
     rng = np.random.default_rng(seed)
+    vae = DualBranchVAE(latent_channels=LATENT, features=VAE_FEATURES,
+                        conditional=vae_conditional)
+    vae.init_parameters_(torch.Generator().manual_seed(seed))
+    vae_params = ti.import_dual_vae({k: v.numpy() for k, v in vae.state_dict().items()})
     pred = JPredictor.create(dict(UNET_KW), rng=jax.random.key(seed), num_slices=S,
                              num_timesteps=T, latent_channels=LATENT, image_hw=(HW, HW),
-                             vae_features=VAE_FEATURES, vae_conditional=vae_conditional)
+                             vae_params=vae_params, vae_conditional=vae_conditional)
     pred = dataclasses.replace(pred, unet_params=randomize_zero_inits(pred.unet_params, rng))
     return pred.set_normalizer({"input": [1.0], "output": NORM_OUTPUT})
 

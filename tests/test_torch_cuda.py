@@ -192,6 +192,32 @@ def test_fused_attention_kernel(gen, dtype, tol, n, t, e, qkv_layout, out_layout
     assert _rel_err(got, ref) <= tol
 
 
+# every attention shape the JAX package runs: head dims off the wgmma core's
+# instances (zero-padded weights), past 512 (the SIMT core in bf16), long
+# sequences (both cores stream the keys), E off a multiple of 8 (x padded)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.3e-2)])
+@pytest.mark.parametrize("n,t,e,heads", [
+    (22, 256, 128, 2), (4, 1024, 128, 2), (2, 4096, 64, 2), (8, 256, 256, 4),
+    (22, 1, 2048, 2), (22, 1, 2048, 1), (3, 40, 2048, 2), (2, 64, 96, 2),
+    (2, 2000, 512, 2), (3, 33, 6, 2), (2, 17, 1, 1), (2, 70, 1200, 2), (2, 5, 600, 1),
+])
+def test_fused_attention_kernel_at_every_shape(gen, dtype, tol, n, t, e, heads):
+    x = torch.randn((n, t, e), generator=gen, device="cuda").to(dtype)
+    w_qkv = (torch.randn((3 * e, e), generator=gen, device="cuda") / math.sqrt(e)).to(dtype)
+    b_qkv = (0.02 * torch.randn(3 * e, generator=gen, device="cuda")).to(dtype)
+    w_out = (torch.randn((e, e), generator=gen, device="cuda") / math.sqrt(e)).to(dtype)
+    b_out = (0.02 * torch.randn(e, generator=gen, device="cuda")).to(dtype)
+    args = (x, w_qkv.t(), b_qkv, w_out.t(), b_out)
+    before = k2.LAUNCHES
+    got = k2.fused_attention(*args, heads)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 1
+    ref = multihead_attention(*[a.float() for a in args], heads)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel_err(got, ref) <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attention_refuses_misaligned_x(gen, dtype):
@@ -279,6 +305,30 @@ def test_conv3x3_bf16_refuses_what_tma_cannot_read(gen, case, match):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.3e-2)])
+def test_vae_attention_block_on_the_card_matches_the_cpu(gen, dtype, tol):
+    """The VAE's AttentionBlock over 11 x 16^2 tokens: K1 (no activation)
+    and K2 once each, against the plain versions on the CPU."""
+    from diffusion_model_project_tpu_torch.models.vae import AttentionBlock
+
+    block = AttentionBlock(64, num_heads=2)
+    cpu_gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=cpu_gen) * 0.1 + (p.ndim == 1) * 0.5)
+    x = torch.randn((2, 64, 11, 16, 16), generator=cpu_gen)
+    with torch.no_grad():
+        ref = block(x)
+        block.cuda()
+        before = (k1.LAUNCHES, k2.LAUNCHES)
+        got = block(x.cuda().to(dtype))
+        torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k2.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel_err(got.cpu(), ref) <= tol
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_grad_and_bad_input(gen):
     x = torch.randn((2, 64, 8, 8), generator=gen, device="cuda", requires_grad=True)
     w = torch.ones(64, device="cuda")
@@ -286,11 +336,11 @@ def test_kernels_refuse_grad_and_bad_input(gen):
         k1.groupnorm_act(x, w, w, 32, "silu")
     with pytest.raises(ValueError, match="contiguous"):
         k1.groupnorm_act(x.detach().transpose(2, 3), w, w, 32, "silu")
-    xa = torch.randn((2, 8, 96), device="cuda")  # head dim 48 is not supported
+    xa = torch.randn((2, 8, 96), device="cuda")  # 96 columns do not split into 5 heads
     wq, wo = torch.zeros((96, 288), device="cuda"), torch.zeros((96, 96), device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="not divisible"):
         k2.fused_attention(xa, wq, torch.zeros(288, device="cuda"), wo,
-                           torch.zeros(96, device="cuda"), 2)
+                           torch.zeros(96, device="cuda"), 5)
     xc = torch.randn((2, 8, 16, 32), generator=gen, device="cuda")
     wc = torch.randn((3, 3, 32, 16), generator=gen, device="cuda")
     with pytest.raises(RuntimeError, match="no backward"):

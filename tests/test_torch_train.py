@@ -123,10 +123,11 @@ def test_device_defaults_to_cuda():
 
 
 # flag -> (argv, the ROADMAP.md item that ports it); None: ported since, so
-# accepted (item 7's flags; tests/test_torch_profiling.py runs them)
+# accepted (item 7's flags, tests/test_torch_profiling.py runs them; items
+# 6a and 6b, tests/test_torch_optimize.py and test_torch_cached_latents.py)
 REFUSED = {
-    "--mode optimize": (["--mode", "optimize"], "item 6a"),
-    "--cache-latents": (["--cache-latents", "true"], "item 6b"),
+    "--mode optimize": (["--mode", "optimize"], None),
+    "--cache-latents": (["--cache-latents", "true"], None),
     "--model-parallel": (["--model-parallel", "2"], "item 8"),
     "--fsdp": (["--fsdp", "true"], "item 8"),
     "--coordinator": (["--coordinator", "localhost:1234"], "item 8"),
