@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases, in the order 1, 2, 5, 3, 4, 18, 8, 9, 10, 12, 14, 16, 19, 11, 13, 15, 17, 6, 7 (the conv probe's
-device times are read before phase 3 profiles a UNet forward; see
-device_kernels); any failure raises and the script exits non-zero without
-printing a result line:
+Phases, in the order 1, 2, 5, 3, 4, 18, 8, 9, 10, 12, 14, 16, 19, 20, 11, 13, 15, 17,
+6, 7 (the conv probe's device times are read before phase 3 profiles a UNet
+forward; see device_kernels); any failure raises and the script exits
+non-zero without printing a result line:
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the hand-written kernels (csrc/*.cu, one nvcc per source)
      into libkernels.so;
@@ -27,8 +27,9 @@ printing a result line:
      K1's path and cluster size at each shape, and its device time a
      request split into the UNet's and the VAE's calls;
   5. conv probe: the port's conv probe (scripts/perf_probe_conv.py) over
-     stages A, B and C with the launch counters set to 0 (K3 must have
-     launched as often as the probe called it, K1 and K2 never); then K3 at
+     stages A, B and C with the launch counters set to 0 (K3 and K4, its
+     int8 row, must have launched as often as the probe called them, K1 and
+     K2 never; K4 equal to its plain version); then K3 at
      each stage and tile against its plain version in float32 from the same
      bf16 tensors, the device time (torch.profiler) of K3 at each tile and
      of cuDNN, and at the planner's tile (the one conv3x3() launches by
@@ -39,7 +40,8 @@ printing a result line:
      T=20 predictor from one shared step-noise table, DPM-Solver++ with 5
      steps; forward's eps_pred and the eval step's loss from the same noise
      and t; the sanity (E3D, D3D) and cross (E2D, D3D) reconstructions;
-  7. the kernel table as one JSON line (phase 9's numbers under each
+  7. the kernel table as one JSON line (K4's from phase 20; phase 9's
+     numbers under each
      kernel's "cli", phase 11's under its "evaluation", phase 13's and the
      training paths' launches under its "training", phase 15's and the VAE
      training paths' launches under its "vae_training", phase 17's and the
@@ -156,6 +158,25 @@ printing a result line:
      latent cache against the uncached one under the same noise and t, then
      --cache-latents with and without --augment, 1 epoch each; every run's
      launches held to the module-derived counts.
+ 20. int8 (K4 never launched on phases 3-19's float paths): (a) the published
+     B=2 bf16 DDIM-50 request as float, with_vae_int8() and with both int8
+     flags, each warmed up under a hook recording K4's inputs, then with the
+     counters set to 0 (K4 30 a VAE-int8 request, 30 + 22 x 50 with both
+     flags, from the modules; K1 / K2 as the float path, K3 0), timed, peak
+     memory, relative MSE against float; the both-flags request once under
+     torch.profiler (K4's device time, the quantize pass's apart); (b) K4
+     against its plain version with torch.equal at every input (a) recorded,
+     device ms, bound (int8 1,979 TOPS or bytes), the bf16 cuDNN conv at the
+     same shape and at 1x1x1 torch._int_mm (yardsticks only); (c) the probe's
+     int8 row from phase 5; (d) the serve CLI's server with --int8 on phase
+     8's run dir: one HTTP request padded to a batch of 2, equal to the direct
+     call on that padded batch; (e) eval_testset_end2end --int8 DDIM-50 on
+     phase 8's dirs (launches held, nMAE beside phase 10's float run); (f)
+     both flags at published widths, 128^2 x 3, B=1, float32, TF32 off,
+     DDIM-5 on the card and the CPU: each side's int8-against-float spread
+     within 2x of the other's, card against CPU within 2.5x the CPU's spread
+     (two int8 runs whose float paths differ by ulps carry independent
+     rounding noise a few int8 layers on).
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -750,18 +771,24 @@ def phase_conv_probe() -> tuple:
     from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
     from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
     from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
+    from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
     from diffusion_model_project_tpu_torch.scripts import perf_probe_conv as probe
 
-    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
     probed = probe.main(list(probe.STAGES))
     launches = {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES,
-                "conv3x3": k3.LAUNCHES}
+                "conv3x3": k3.LAUNCHES, "int8_conv": k4.LAUNCHES}
     expected = sum(r["calls"] for r in probed if r["candidate"].startswith("k3["))
+    int8_rows = [r for r in probed if r["candidate"] == "k4_int8"]
+    expected_k4 = sum(r["calls"] for r in int8_rows)
     log(f"[conv probe] launches in one probe over stages {', '.join(probe.STAGES)}: "
-        f"{launches} (expected conv3x3 {expected}, the others 0)")
+        f"{launches} (expected conv3x3 {expected}, int8_conv {expected_k4}, the others 0)")
     if not expected or launches != {"groupnorm_act": 0, "fused_attention": 0,
-                                    "conv3x3": expected}:
-        raise RuntimeError(f"the conv probe did not go through K3 as expected: {launches}")
+                                    "conv3x3": expected, "int8_conv": expected_k4}:
+        raise RuntimeError(f"the conv probe did not go through K3 and K4 as expected: "
+                           f"{launches}")
+    if any(r["max_abs_err"] for r in int8_rows):
+        raise RuntimeError(f"the probe's int8 row differs from K4's plain version: {int8_rows}")
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full float32
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -825,7 +852,7 @@ def phase_conv_probe() -> tuple:
         if not row["rel_err"] <= K3_TOL:
             raise RuntimeError(f"conv3x3 stage {stage}: error {row['rel_err']:.3e} "
                                f"above tolerance {K3_TOL:.3e}")
-    return rows, launches["conv3x3"], probed
+    return rows, launches, probed
 
 
 def phase_card_vs_cpu() -> dict:
@@ -3009,6 +3036,404 @@ def phase_search(smi: str, data_dir: str, vae_dir: str, written_pred, root: str)
     return res
 
 
+# ------------------------------------------------------------------ phase 20: int8
+
+INT8_OPS = 1979e12       # H100 SXM dense int8 tensor-core peak, operations/s
+INT8_REPS = 2            # timed requests of each variant in (a)
+INT8_CVC_HW, INT8_CVC_STEPS = 128, 5  # (f): card against CPU, 128^2 x 3, B=1, DDIM-5
+# (f) and the card tests: two int8 runs whose float paths differ by ulps carry
+# independent rounding noise a few int8 layers on, so their distance is held
+# to that of two independent int8 errors (2x one) with room, and each one's
+# spread from its own float32 result to within 2x of the other's
+INT8_CROSS, INT8_SPREAD = 2.5, 2.0
+
+
+def is_k4_kernel(name: str) -> bool:
+    return "int8_conv_mma" in name
+
+
+def int8_calls(pred) -> dict:
+    """K4 launches of a VAE-int8 predict call (E2D + D3D) and of a UNet-int8
+    forward, counted from the modules: every Conv2d / Conv3d whose channels
+    are not too thin for the int8 path."""
+    from diffusion_model_project_tpu_torch.models.layers import Conv2d, Conv3d
+    from diffusion_model_project_tpu_torch.ops.quant import use_float_path
+
+    def count(module):
+        return sum(not use_float_path(m.in_channels, m.out_channels)
+                   for m in module.modules() if isinstance(m, (Conv2d, Conv3d)))
+
+    return {"vae": count(pred.vae.encoder_2d) + count(pred.vae.decoder_3d),
+            "unet": count(pred.model)}
+
+
+class Int8Recorder:
+    """While entered, counts K4's inputs a call of the int8 conv meets: the
+    codes' shapes (N, D, H, W, Cp) and (Cout, kd, kh, kw, Cp), stride,
+    padding, Cin and the output dtype, by wrapping ``models.layers.int8_conv``."""
+
+    def __enter__(self):
+        from diffusion_model_project_tpu_torch.models import layers
+        from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
+
+        self.seen = collections.Counter()
+        self._layers, self._orig = layers, layers.int8_conv
+
+        def record(x, weight, stride, padding, out_dtype):
+            two_d = x.ndim == 4
+            n, cin = x.shape[:2]
+            cp = k4.padded_channels(cin)
+            spatial = ((1,) if two_d else ()) + tuple(x.shape[2:])
+            kernel = ((1,) if two_d else ()) + tuple(weight.shape[2:])
+            stride3 = ((1,) if two_d else ()) + tuple(stride)
+            pads = (((0, 0),) if two_d else ()) + tuple(tuple(p) for p in padding)
+            self.seen[("int8_conv", (n, *spatial, cp), (weight.shape[0], *kernel, cp), stride3,
+                       tuple(v for p in pads for v in p), cin, str(out_dtype))] += 1
+            return self._orig(x, weight, stride, padding, out_dtype)
+
+        layers.int8_conv = record
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.int8_conv = self._orig
+
+
+def _k4_case(key, calls: int, gen) -> dict:
+    """K4 against its plain version (torch.equal) at one recorded input, with
+    its times, bound and the library yardsticks: the bf16 cuDNN conv at the
+    same shape (what the float path runs) and, at 1x1x1, ``torch._int_mm``."""
+    import torch.nn.functional as F
+
+    from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
+
+    _, xs, ws, stride, pads, cin, dt = key
+    dtype = DTYPES[dt]
+    x_q = torch.randint(-127, 128, xs, generator=gen, device="cuda", dtype=torch.int8)
+    w_q = torch.randint(-127, 128, ws, generator=gen, device="cuda", dtype=torch.int8)
+    x_q[..., cin:] = 0
+    w_q[..., cin:] = 0
+    sw = torch.rand(ws[0], generator=gen, device="cuda") * 1e-4 + 1e-6
+    args = (x_q, w_q, sw, stride, pads, dtype)
+    got = k4.int8_conv(*args)
+    want = k4.int8_conv_plain(*args)
+    equal = torch.equal(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    del want
+    times = {"ms": sync_ms(lambda: k4.int8_conv(*args), iters=10, warmup=2),
+             "plain_ms": sync_ms(lambda: k4.int8_conv_plain(*args), iters=1, warmup=0),
+             "device_ms": device_ms(lambda: k4.int8_conv(*args), keep=is_k4_kernel,
+                                    counter=lambda: k4.LAUNCHES)}
+    # the library: the float path's bf16 conv on the same values, channels-first
+    xb = F.pad(x_q[..., :cin].permute(0, 4, 1, 2, 3).to(torch.bfloat16),
+               pads[4:6] + pads[2:4] + pads[0:2])
+    wb = w_q[..., :cin].permute(0, 4, 1, 2, 3).to(torch.bfloat16)
+    if xs[1] == 1 and ws[1] == 1:
+        xb, wb = xb[:, :, 0], wb[:, :, 0]
+        library = lambda: F.conv2d(xb, wb, stride=stride[1:])  # noqa: E731
+    else:
+        library = lambda: F.conv3d(xb, wb, stride=stride)  # noqa: E731
+    times["library_ms"] = sync_ms(library, iters=10, warmup=2)
+    times["library_device_ms"] = library_device_ms(library)
+    if ws[1:4] == (1, 1, 1):
+        a, b = x_q.reshape(-1, xs[-1]), w_q.reshape(ws[0], xs[-1]).t()
+        try:
+            times["int_mm_ms"] = sync_ms(lambda: torch._int_mm(a, b), iters=10, warmup=2)
+        except RuntimeError as e:
+            log(f"[int8] torch._int_mm not measured at {xs}: {str(e)[:120]}")
+            times["int_mm_ms"] = None
+    del xb, wb
+    m = got[:, 0].numel()
+    taps = ws[1] * ws[2] * ws[3]
+    flops = 2 * m * ws[0] * taps * cin
+    nbytes = x_q.numel() + w_q.numel() + 4 * ws[0] + got.numel() * got.element_size()
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / INT8_OPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    detail = (f"{'x'.join(map(str, ws[1:4]))} stride {'x'.join(map(str, stride))} Cin {cin} "
+              f"-> {ws[0]} {dt.replace('torch.', '')}")
+    return dict(kernel="int8_conv", shape=list(xs), weight_shape=list(ws), stride=list(stride),
+                padding=list(pads), dtype=dt, detail=detail, calls_per_request=calls,
+                equal=equal, max_abs_err=err, rel_err=err, tol=0.0, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+                flops=flops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                device_tops=flops / times["device_ms"] / 1e9, **times)
+
+
+def _rel_mse(a, b) -> float:
+    return ((a.float() - b.float()).pow(2).mean() / b.float().pow(2).mean()).item()
+
+
+def int8_request(smi: str) -> tuple:
+    """(a) the published B=2 bf16 DDIM-50 request as float, with_vae_int8()
+    and both flags: launches held to the module counts, request ms, peak
+    memory, int8 against float; the both-flags request once more under
+    torch.profiler: device time of K4 and of the quantize pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from diffusion_model_project_tpu_torch.ops import quant
+    from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
+
+    dev = torch.device("cuda")
+    pred = published_predictor(dev, torch.bfloat16)
+    img, vel, noise = (t.to(dev) for t in make_inputs(B, S, HW, seed=1))
+    calls = int8_calls(pred)
+    exp_gn, exp_attn = expected_calls(pred, STEPS)
+    variants = {"float": (pred, 0), "vae": (pred.with_vae_int8(), calls["vae"]),
+                "vae_unet": (pred.with_vae_int8().with_unet_int8(),
+                             calls["vae"] + calls["unet"] * STEPS)}
+
+    def request(p):
+        out = p.predict_ddim(img, vel, num_steps=STEPS, noise=noise)
+        torch.cuda.synchronize()
+        return out
+
+    res, shapes, outs = {}, {}, {}
+    for name, (p, k4_calls) in variants.items():
+        with Int8Recorder() as rec:  # the warm-up, recording K4's inputs
+            request(p)
+        shapes[name] = rec.seen
+        _zero_launches()
+        k4.LAUNCHES = 0
+        out = request(p)
+        launches = {**_launches(), "int8_conv": k4.LAUNCHES}
+        want = {"groupnorm_act": exp_gn, "fused_attention": exp_attn, "conv3x3": 0,
+                "int8_conv": k4_calls}
+        if launches != want:
+            raise RuntimeError(f"[int8] (a) {name}: launches {launches} against {want}")
+        if tuple(out.shape) != (B, S, 3, HW, HW) or not torch.isfinite(out).all():
+            raise RuntimeError(f"[int8] (a) {name}: bad output {tuple(out.shape)}")
+        outs[name] = out
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(INT8_REPS):
+            request(p)
+        ms = (time.perf_counter() - t0) * 1e3 / INT8_REPS
+        res[name] = {"launches": launches, "request_ms": ms, "volumes_per_s": B * 1e3 / ms,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "k4_inputs": sum(rec.seen.values())}
+    for name in ("vae", "vae_unet"):
+        res[name]["rel_mse_vs_float"] = _rel_mse(outs[name], outs["float"])
+        if not 0 < res[name]["rel_mse_vs_float"] < 1:
+            raise RuntimeError(f"[int8] (a) {name}: relative MSE against float "
+                               f"{res[name]['rel_mse_vs_float']:.3e}")
+
+    # one both-flags request under the profiler, the quantize pass in ranges
+    saved = (quant.quantize_channels_last, quant.quantize_weight)
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function("int8 quantize"):
+                return fn(*a, **kw)
+        return call
+
+    quant.quantize_channels_last, quant.quantize_weight = map(ranged, saved)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(1000)
+            request(variants["vae_unet"][0])
+    finally:
+        quant.quantize_channels_last, quant.quantize_weight = saved
+    # the kernels (not the range's own span on the device timeline, which
+    # holds the gaps between its kernels); the quantize pass: the kernels its
+    # ranges launched
+    evs = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
+           if e.device_type == DeviceType.CUDA and SENTINEL not in e.name
+           and e.name != "int8 quantize"]
+    quant_ms = sum(e.device_time_total for e in prof.events()
+                   if e.device_type == DeviceType.CPU and e.name == "int8 quantize") / 1e3
+    k4_evs = [ms for name, ms in evs if is_k4_kernel(name)]
+    profiled = {"device_ms": sum(ms for _, ms in evs), "k4_ms": sum(k4_evs),
+                "k4_kernels": len(k4_evs), "quantize_ms": quant_ms}
+    profiled["other_ms"] = profiled["device_ms"] - profiled["k4_ms"] - quant_ms
+    res["vae_unet"]["profile"] = profiled
+    for name, r in res.items():
+        log(f"[int8] (a) {name}: B={B} bf16 DDIM-{STEPS} request {r['request_ms']:.1f} ms, "
+            f"{r['volumes_per_s']:.3f} volumes/s, peak {r['peak_bytes'] / 2**30:.2f} GiB; "
+            f"launches {r['launches']}"
+            + (f"; relative MSE against float {r['rel_mse_vs_float']:.3e}" if name != "float"
+               else "") + f" | {smi}")
+    log(f"[int8] (a) vae_unet under torch.profiler: device {profiled['device_ms']:.1f} ms, K4 "
+        f"{profiled['k4_ms']:.1f} ms over {profiled['k4_kernels']} kernels, the quantize pass "
+        f"{quant_ms:.1f} ms, the rest {profiled['other_ms']:.1f} ms | {smi}")
+    return res, shapes["vae_unet"], calls
+
+
+def int8_serve(run_dir: str, calls: dict, smi: str) -> dict:
+    """(d) the serve CLI's server with --int8 on phase 8's run dir: one
+    request over HTTP, padded to a batch of 2, against the direct call on
+    that padded batch (its request twice, its latents twice)."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
+    from diffusion_model_project_tpu_torch.scripts import serve as serve_cli
+    from diffusion_model_project_tpu_torch.scripts.perf_serve_daemon import volume
+    from diffusion_model_project_tpu_torch.utils.serving import request_noise
+
+    predictor, server, httpd = serve_cli.build_server(serve_cli.parse_args(
+        ["--model-dir", run_dir, "--int8", "--port", "0", "--batch-sizes", "2",
+         "--max-wait-ms", "1", "--image-size", str(HW)]))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        if not (predictor.vae_int8 and not predictor.unet_int8):
+            raise RuntimeError("[int8] (d): serve --int8 did not build a vae_int8 predictor")
+        img, v2d = volume(0, 9000)
+        buf = io.BytesIO()
+        np.savez(buf, img=img, v2d=v2d, seed=9)
+        server.warmup()
+        _zero_launches()
+        k4.LAUNCHES = 0
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/v1/predict",
+                                     data=buf.getvalue())
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            got = np.load(io.BytesIO(resp.read()))["velocity"]
+        latency = time.perf_counter() - t0
+        launches = {**_launches(), "int8_conv": k4.LAUNCHES}
+        stats = server.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        th.join(timeout=60)
+    exp_gn, exp_attn = expected_calls(predictor, STEPS)
+    want_l = {"groupnorm_act": exp_gn, "fused_attention": exp_attn, "conv3x3": 0,
+              "int8_conv": calls["vae"]}
+    if launches != want_l or stats["padded_slots"] != 1:
+        raise RuntimeError(f"[int8] (d): launches {launches} against {want_l}, stats {stats}")
+    ld = S // predictor.vae_depth_factor
+    noise = request_noise(9, (ld, predictor.latent_channels, HW // 4, HW // 4))
+    two = lambda a: torch.from_numpy(np.stack([a, a])).cuda()  # noqa: E731
+    want = predictor.predict_ddim(two(img), two(v2d), num_steps=STEPS,
+                                  noise=torch.stack([noise, noise]).cuda())[0].cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    if got.shape != (S, 3, HW, HW) or not rel <= 1e-6:
+        raise RuntimeError(f"[int8] (d): served {got.shape} at {rel:.3e} from the direct call")
+    log(f"[int8] (d) serve.py --int8: one request padded to a batch of 2 in {latency:.3f} s; "
+        f"against the direct call on that padded batch {rel:.3e}; launches {launches} | {smi}")
+    return {"latency_s": latency, "rel_err_vs_direct": rel, "launches": launches,
+            "padded_slots": stats["padded_slots"]}
+
+
+def int8_eval(run_dir: str, data_dir: str, calls: dict, ev: dict, smi: str) -> dict:
+    """(e) eval_testset_end2end --int8, DDIM-50 at batch 1, on phase 8's dirs,
+    float32 as the script runs; launches held; nMAE beside phase 10's float run."""
+    import contextlib
+
+    import numpy as np
+
+    from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
+    from diffusion_model_project_tpu_torch.scripts import eval_testset_end2end as e2e
+
+    out_dir = os.path.join(os.path.dirname(run_dir), "eval_int8")
+    _zero_launches()
+    k4.LAUNCHES = 0
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        r = e2e.run(["--diffusion-model-path", run_dir, "--dataset-dir", data_dir, "--int8",
+                     "--sampler", "ddim", "--steps", str(STEPS), "--output-dir", out_dir])
+    n = len(r.per_sample)
+    gn, attn = expected_calls(r.predictor, STEPS)
+    launches = {**_launches(), "int8_conv": k4.LAUNCHES}
+    want = {"groupnorm_act": n * gn, "fused_attention": n * attn, "conv3x3": 0,
+            "int8_conv": n * calls["vae"]}
+    nmae = [x["nmae_total"] for x in r.per_sample]
+    if (launches != want or "int8 frozen-VAE path enabled" not in "".join(tee.text)
+            or n != 3 or not np.all(np.isfinite(nmae))):
+        raise RuntimeError(f"[int8] (e): launches {launches} against {want}, nMAE {nmae}")
+    float_nmae = ev["end2end"]["ddim_b1"]["nmae_total"]
+    log(f"[int8] (e) eval_testset_end2end --int8 DDIM-{STEPS}: {n} samples, nMAE "
+        + ", ".join(f"{x:.4f}" for x in nmae) + " (float " + ", ".join(
+            f"{x:.4f}" for x in float_nmae) + f"); steady {r.steady_seconds:.3f} s a sample; "
+        f"launches {launches} | {smi}")
+    return {"launches": launches, "nmae_total": nmae, "float_nmae_total": float_nmae,
+            "steady_s_per_sample": r.steady_seconds}
+
+
+def int8_card_vs_cpu(smi: str) -> dict:
+    """(f) both int8 flags at published widths, 128^2 x 3, B=1, float32, TF32
+    off, DDIM-5, on the card and on the CPU from the same weights and noise."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s, hw = 3, INT8_CVC_HW
+    cpu = published_predictor(torch.device("cpu"), torch.float32, seed=3)
+    card = copy.deepcopy(cpu).to("cuda")
+    img, vel, noise = make_inputs(1, s, hw, seed=4)
+
+    def run(p, d):
+        return p.predict_ddim(img.to(d), vel.to(d), num_steps=INT8_CVC_STEPS,
+                              noise=noise.to(d)).cpu()
+
+    t0 = time.perf_counter()
+    cpu_f32, cpu8 = run(cpu, "cpu"), run(cpu.with_vae_int8().with_unet_int8(), "cpu")
+    cpu_s = time.perf_counter() - t0
+    card_f32, card8 = run(card, "cuda"), run(card.with_vae_int8().with_unet_int8(), "cuda")
+    r = {"cpu_spread": _rel_mse(cpu8, cpu_f32), "card_spread": _rel_mse(card8, card_f32),
+         "card_vs_cpu": _rel_mse(card8, cpu8), "float_card_vs_cpu": _rel_mse(card_f32, cpu_f32),
+         "cpu_s": cpu_s}
+    log(f"[int8] (f) card against CPU, published widths, {s}x{hw}^2, B=1, float32, DDIM-"
+        f"{INT8_CVC_STEPS}, both int8 flags: relative MSE int8 against float32 CPU "
+        f"{r['cpu_spread']:.3e}, card {r['card_spread']:.3e}; card int8 against CPU int8 "
+        f"{r['card_vs_cpu']:.3e} (limit {INT8_CROSS} x the CPU's spread); float32 card "
+        f"against CPU {r['float_card_vs_cpu']:.3e}; cpu {cpu_s:.1f} s | {smi}")
+    ok = (torch.isfinite(card8).all() and 0 < r["cpu_spread"]
+          and r["cpu_spread"] / INT8_SPREAD <= r["card_spread"] <= INT8_SPREAD * r["cpu_spread"]
+          and r["card_vs_cpu"] <= INT8_CROSS * r["cpu_spread"])
+    if not ok:
+        raise RuntimeError(f"[int8] (f): card and CPU int8 disagree: {r}")
+    return r
+
+
+def phase_int8(smi: str, run_dir: str, data_dir: str, ev: dict, probe_rows: list) -> dict:
+    """Phase 20: the int8 variants (with_vae_int8 / with_unet_int8, K4)."""
+    from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
+
+    t_start = time.perf_counter()
+    float_paths = k4.LAUNCHES - sum(r["calls"] for r in probe_rows)
+    if float_paths:
+        raise RuntimeError(f"[int8] K4 launched {float_paths} times on the float paths")
+    req, shapes, calls = int8_request(smi)
+    # (b) K4 at every input (a)'s both-flags request met
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    for key, n in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        row = _k4_case(key, n, gen)
+        rows.append(row)
+        lib_dev = row["library_device_ms"]
+        log(f"[int8] (b) {str(tuple(key[1])):24s} {row['detail']:38s} x{n:<4d} equal "
+            f"{row['equal']} (max abs err {row['max_abs_err']:.1e}) | ms {row['ms']:.4f} device "
+            f"{row['device_ms']:.4f} ({row['device_tops']:.1f} TOPS) plain {row['plain_ms']:.2f} "
+            f"bf16 cuDNN {row['library_ms']:.4f} device "
+            f"{'not measured' if lib_dev is None else f'{lib_dev:.4f}'}"
+            + (f" int_mm {row['int_mm_ms']:.4f}" if row.get("int_mm_ms") else "")
+            + f" bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        if not row["equal"]:
+            raise RuntimeError(f"[int8] (b) K4 differs from its plain version at {key}")
+    per = {k: sum(r[k] * r["calls_per_request"] for r in rows)
+           for k in ("device_ms", "bound_ms", "ms", "library_ms")}
+    log(f"[int8] (b) K4 a both-flags request: {sum(r['calls_per_request'] for r in rows)} calls "
+        f"at {len(rows)} inputs, device {per['device_ms']:.2f} ms (bound {per['bound_ms']:.2f}), "
+        f"back to back {per['ms']:.2f}, the bf16 cuDNN convs {per['library_ms']:.2f} | {smi}")
+    # (c) the probe's int8 row (phase 5 ran it)
+    for r in probe_rows:
+        log(f"[int8] (c) conv probe stage {r['stage']} {tuple(r['shape'])}: K4 {r['ms']:.3f} ms, "
+            f"{r['tflops']:.1f} TOPS, {100 * r['bound_ms'] / r['ms']:.1f}% of the int8 bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.1e}")
+    sv = int8_serve(run_dir, calls, smi)
+    e2e = int8_eval(run_dir, data_dir, calls, ev, smi)
+    cvc = int8_card_vs_cpu(smi)
+    secs = time.perf_counter() - t_start
+    log(f"[int8] phase 20 in {secs:.1f} s")
+    return {"request": req, "calls": calls, "rows": rows, "per_request": per,
+            "probe_rows": probe_rows, "serve": sv, "eval": e2e, "card_vs_cpu": cvc,
+            "seconds": secs}
+
+
 def _totals(rs: list) -> dict:
     """A kernel's numbers a request from its rows: each shape's time times
     its calls a request, summed; the largest error."""
@@ -3101,6 +3526,25 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
     return out
 
 
+def summarize_int8(i8: dict, probe_launches: int, by_path: dict) -> dict:
+    """K4's entry: times a request of the both-flags B=2 DDIM-50 path (phase
+    20 (a)'s inputs, each (b) row's time times its calls), its launches on
+    that path, and on every int8 path counted."""
+    paths = sorted(p for p in by_path if p.startswith("int8_"))
+    return {"name": "int8_conv", "route": "cuda",
+            "source": "diffusion_model_project_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "diffusion_model_project_tpu/ops/quant.py:67",
+            "launches": i8["request"]["vae_unet"]["launches"]["int8_conv"],
+            "launches_by_path": {"conv_probe": probe_launches,
+                                 **{p: by_path[p]["int8_conv"] for p in paths}},
+            **_totals(i8["rows"]),
+            "int8": {"rows": len(i8["rows"]), "probe": [
+                {k: r[k] for k in ("stage", "ms", "tflops", "bound_ms", "bound_by",
+                                   "max_abs_err")} for r in i8["probe_rows"]],
+                "request_ms": {k: v["request_ms"] for k, v in i8["request"].items()},
+                "profile": i8["request"]["vae_unet"]["profile"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -3113,7 +3557,8 @@ def main() -> int:
     # the conv probe first: its device times are read before phase 3's trace
     # of a UNet forward, after which torch.profiler drops kernels
     start = dict(PROFILER)
-    conv_rows, conv_launches, probed = phase_conv_probe()
+    conv_rows, probe_launches, probed = phase_conv_probe()
+    conv_launches = probe_launches["conv3x3"]
     tallies = [tally("conv probe", start), profiler_check("before the slice")]
     sl = phase_slice()
     tallies.append(profiler_check("after the slice"))
@@ -3144,6 +3589,8 @@ def main() -> int:
         vt = phase_vae_training(device["nvidia_smi"], data_dir, root, written_pred)
         sv = phase_serving(device["nvidia_smi"], run_dir, data_dir, vae_dir, root)
         se = phase_search(device["nvidia_smi"], data_dir, vae_dir, written_pred, root)
+        i8 = phase_int8(device["nvidia_smi"], run_dir, data_dir, ev,
+                        [r for r in probed if r["candidate"] == "k4_int8"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     mark = dict(PROFILER)
@@ -3209,12 +3656,15 @@ def main() -> int:
     by_path = {"ddim_slice": {**sl["launches"], "conv3x3": 0},
                "conv_probe": {"groupnorm_act": 0, "fused_attention": 0,
                               "conv3x3": conv_launches},
+               **{f"int8_ddim50_{k}": v["launches"] for k, v in i8["request"].items()},
+               "int8_serve": i8["serve"]["launches"], "int8_eval_ddim50": i8["eval"]["launches"],
                **{f"cli_{k}": v["launches"] for k, v in ep["runs"].items()}, **eval_paths,
                **train_paths, **vae_paths, **serve_paths, **search_paths}
     kernels = summarize(rows + conv_rows, {**sl["launches"], "conv3x3": conv_launches}, by_path,
                         cli_rows, eval_rows, sorted(eval_paths), train_rows, sorted(train_paths),
                         vae_rows, sorted(vae_paths), vt["k1_device_ms"], serve_rows,
                         sorted(serve_paths), sv, wide_rows, sorted(search_paths))
+    kernels.append(summarize_int8(i8, probe_launches["int8_conv"], by_path))
     total = time.perf_counter() - t_start
 
     detail = {"device": device, "build": build, "slice": {**sl, "shapes": [
@@ -3242,6 +3692,8 @@ def main() -> int:
                              for key in ("shapes", "new_shapes")}},
         "serve_kernel_rows": serve_rows, "serve_k1_dispatch_ms": serve_k1_parts,
         "wide_kernel_rows": wide_rows, "search": se,
+        "int8": {**i8, "rows": [{k: (list(v) if isinstance(v, tuple) else v)
+                                 for k, v in r.items()} for r in i8["rows"]]},
         "kernels": kernels, "profiler": {**PROFILER, "phases": tallies}, "seconds": total}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

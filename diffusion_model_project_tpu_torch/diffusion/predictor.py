@@ -16,15 +16,21 @@ Each sampler is a host loop of UNet calls (one dispatch a step). The
 noise-prediction step of training and evaluation (``encode_target`` the
 target with E3D, ``forward`` one UNet evaluation at one timestep a latent
 slice) returns its tensors in the port's layout, (B*ld, C, lh, lw).
+``with_vae_int8()`` / ``with_unet_int8()`` return a predictor that shares
+these modules and runs the frozen VAE's / UNet's convs in dynamic int8
+(``models.layers.int8_convs``); int8 never trains.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..models.layers import int8_convs
 from ..models.unet import UNet
 from ..models.vae import REFERENCE_FEATURES, DualBranchVAE
 from ..ops.distance import distance_transform_edt
@@ -73,6 +79,11 @@ class LatentDiffusionPredictor(nn.Module):
         # dtype of conv and matmul compute; scheduler math, normalization and
         # GroupNorm statistics stay float32
         self.compute_dtype = compute_dtype
+        # run the frozen VAE's / UNet's convs in dynamic int8 (with_vae_int8,
+        # with_unet_int8); the VAE path is the serving and evaluation knob,
+        # the UNet's error feeds back through the sampler
+        self.vae_int8 = False
+        self.unet_int8 = False
         self.to(device)
         self._read_host_values()
         self.register_load_state_dict_post_hook(_refresh_host_values)
@@ -97,6 +108,29 @@ class LatentDiffusionPredictor(nn.Module):
 
         predictor, _ = predictor_from_directory(folder, **kwargs)
         return predictor
+
+    def _with_flags(self, **flags) -> "LatentDiffusionPredictor":
+        """A predictor that shares this one's modules, parameters and buffers
+        (so its state dict has the same keys and tensors) with ``flags`` set;
+        this one is unchanged (the JAX ``dataclasses.replace``)."""
+        new = copy.copy(self)
+        new._load_state_dict_post_hooks = type(self._load_state_dict_post_hooks)()
+        new.register_load_state_dict_post_hook(_refresh_host_values)
+        for name, value in flags.items():
+            setattr(new, name, bool(value))
+        return new
+
+    def with_vae_int8(self, enabled: bool = True) -> "LatentDiffusionPredictor":
+        return self._with_flags(vae_int8=enabled)
+
+    def with_unet_int8(self, enabled: bool = True) -> "LatentDiffusionPredictor":
+        return self._with_flags(unet_int8=enabled)
+
+    @staticmethod
+    def _int8(enabled: bool):
+        """The context a frozen network's calls run in: ``int8_convs()`` where
+        its int8 flag is set (the JAX ``_vae_apply`` and ``_unet_eps``)."""
+        return int8_convs() if enabled else contextlib.nullcontext()
 
     @property
     def device(self) -> torch.device:
@@ -151,8 +185,9 @@ class LatentDiffusionPredictor(nn.Module):
         lh, lw, ld = h // 4, w // 4, s // self.vae_depth_factor
 
         v2d = self.normalizer["output"].normalize(velocity_2d, channel_axis=2)
-        z_cond, _ = self.vae.encode_2d_deterministic(
-            v2d.transpose(1, 2).to(self.compute_dtype))        # (B, C, ld, lh, lw)
+        with self._int8(self.vae_int8):
+            z_cond, _ = self.vae.encode_2d_deterministic(
+                v2d.transpose(1, 2).to(self.compute_dtype))    # (B, C, ld, lh, lw)
         if z_cond.shape[2] != ld:
             raise ValueError(
                 f"vae_depth_factor={self.vae_depth_factor} implies latent depth {ld}, but "
@@ -171,7 +206,8 @@ class LatentDiffusionPredictor(nn.Module):
     def _unet_eps(self, x, z_cond, m_cond, t):
         cd = self.compute_dtype
         unet_in = torch.cat([x.to(cd), z_cond.to(cd), m_cond.to(cd)], dim=1)
-        return self.model(unet_in, t).float()
+        with self._int8(self.unet_int8):
+            return self.model(unet_in, t).float()
 
     # ----------------------------------------------------------------- train
 
@@ -180,7 +216,8 @@ class LatentDiffusionPredictor(nn.Module):
         runs in the compute dtype (reference predictor.py:1042-1085)."""
         v = self.normalizer["output"].normalize(velocity_3d.to(self.device, torch.float32),
                                                 channel_axis=2)
-        mu, _ = self.vae.encode_3d_deterministic(v.transpose(1, 2).to(self.compute_dtype))
+        with self._int8(self.vae_int8):
+            mu, _ = self.vae.encode_3d_deterministic(v.transpose(1, 2).to(self.compute_dtype))
         return mu.float().transpose(1, 2)
 
     def forward(self, img: torch.Tensor, velocity_2d: torch.Tensor, x_start: torch.Tensor, *,
@@ -298,7 +335,8 @@ class LatentDiffusionPredictor(nn.Module):
         b, s, h, w = img.shape[0], img.shape[1], img.shape[-2], img.shape[-1]
         ld = x.shape[0] // b
         z = x.reshape(b, ld, self.latent_channels, x.shape[-2], x.shape[-1]).transpose(1, 2)
-        vel = self.vae.decode_3d(z.to(self.compute_dtype)).float()   # (B, 3, ld, H, W)
+        with self._int8(self.vae_int8):
+            vel = self.vae.decode_3d(z.to(self.compute_dtype)).float()  # (B, 3, ld, H, W)
         vel = self.normalizer["output"].inverse(vel, channel_axis=1)
         if ld != s:
             vel = interpolate_trilinear(vel, s, h, w)

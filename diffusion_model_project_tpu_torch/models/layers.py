@@ -7,11 +7,15 @@ self-attention go through the K1/K2 wrappers, which launch the hand-written
 kernels on CUDA tensors and take the plain versions on CPU tensors. Inside
 ``train_trace()`` (the training steps) a call that needs a gradient takes the
 plain version under autograd instead, GroupNorm with two-pass statistics.
+Inside ``int8_convs()`` (a frozen predictor's int8 paths) ``Conv2d`` and
+``Conv3d`` run dynamic int8 through ``ops/quant.int8_conv`` (K4), except the
+thin-channel ones that ``ops/quant.use_float_path`` keeps in float.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -22,6 +26,7 @@ from ..ops.attention import multihead_attention
 from ..ops.basic import activation_function, group_norm
 from ..ops.cuda.attention import fused_attention
 from ..ops.cuda.groupnorm_act import groupnorm_act
+from ..ops.quant import int8_conv, use_float_path
 
 # Set by train_trace(). A process-wide flag, not a thread-local one: the
 # autograd engine runs backward (and torch.utils.checkpoint's recomputation
@@ -62,6 +67,50 @@ def routes_plain(module: nn.Module, x: torch.Tensor) -> bool:
         x.requires_grad or any(p.requires_grad for p in module.parameters()))
 
 
+# Set by int8_convs(). Thread-local: the server's batcher thread may run an
+# int8 predictor while other threads run a float one. int8 never trains, so
+# no autograd thread has to see it.
+_INT8 = threading.local()
+
+
+@contextlib.contextmanager
+def int8_convs():
+    """Every ``Conv2d`` / ``Conv3d`` called inside this context on this thread
+    runs dynamic int8 (the JAX ``int8_convs()``), unless its channels are too
+    thin (``use_float_path``)."""
+    prev = in_int8_convs()
+    _INT8.on = True
+    try:
+        yield
+    finally:
+        _INT8.on = prev
+
+
+def in_int8_convs() -> bool:
+    return getattr(_INT8, "on", False)
+
+
+def routes_int8(conv: nn.Module) -> bool:
+    """Whether a call of ``conv`` (a Conv2d or Conv3d) takes the int8 path."""
+    return in_int8_convs() and not use_float_path(conv.in_channels, conv.out_channels)
+
+
+def _conv_int8(conv, x: torch.Tensor, extra_pad=None) -> torch.Tensor:
+    """The JAX ``Conv`` under ``int8_convs()``: ``extra_pad`` (per-dim (lo,
+    hi)) joins the padding, a padding mode other than zeros pads x first, then
+    the int8 conv rescales to x's dtype and the bias is added in that dtype."""
+    pads = [(p, p) for p in conv.padding]
+    if extra_pad is not None:
+        pads = [(a + c, b + d) for (a, b), (c, d) in zip(pads, extra_pad)]
+    if conv.padding_mode != "zeros" and any(p != (0, 0) for p in pads):
+        x = F.pad(x, [v for lo_hi in reversed(pads) for v in lo_hi], mode=conv.padding_mode)
+        pads = [(0, 0)] * len(pads)
+    out = int8_conv(x, conv.weight, conv.stride, pads, x.dtype)
+    if conv.bias is None:
+        return out
+    return out + conv.bias.to(out.dtype).reshape((-1,) + (1,) * (out.ndim - 2))
+
+
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
     return None if p is None else p.to(dtype)
 
@@ -70,6 +119,8 @@ class Conv2d(nn.Conv2d):
     """torch Conv2d (padding modes zeros/reflect/replicate/circular) run in x's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if routes_int8(self):
+            return _conv_int8(self, x)
         return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
@@ -81,11 +132,15 @@ class Conv3d(nn.Conv3d):
     def __init__(self, *args, extra_pad: Optional[Sequence[Sequence[int]]] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.extra_pad = None
+        self.extra_pad_pairs = None
         if extra_pad is not None:
+            self.extra_pad_pairs = tuple(tuple(lo_hi) for lo_hi in extra_pad)
             # F.pad lists the last dim first
             self.extra_pad = tuple(v for lo_hi in reversed(extra_pad) for v in lo_hi)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if routes_int8(self):
+            return _conv_int8(self, x, self.extra_pad_pairs)
         if self.extra_pad is not None:
             x = F.pad(x, self.extra_pad)
         return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))

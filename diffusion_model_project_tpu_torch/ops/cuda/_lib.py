@@ -36,6 +36,7 @@ _SIGNATURES = {
     "dm_gemm_bias": [_I, _P, _P, _L, _L, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P],
     "dm_attention_core": [_I, _P, _P, _L, _L, _I, _I, _F, _I, _I, _I, _P],
     "dm_conv3x3": [_I, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P],
+    "dm_int8_conv": [_I, _P, _P, _P, _P] + [_I] * 18 + [_P],
 }
 
 _lib = None

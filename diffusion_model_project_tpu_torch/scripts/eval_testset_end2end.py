@@ -20,7 +20,10 @@ padded by repeating its last sample. Each sample's initial latents come
 from ``torch.manual_seed(seed + idx)`` then ``torch.randn(ld, C, lh, lw)`` on
 the CPU (the reference's stream, eval:806-810), or from ``--noise-dir``, so
 the deterministic samplers give per-sample results that do not depend on the
-batch size.
+batch size. ``--int8`` runs the samplers on ``with_vae_int8()``, whose
+activation scales are taken over a whole chunk, so there a sample's result
+does depend on the samples (and the padding) it is chunked with;
+``--sanity-mode`` and ``--cross-mode`` call the VAE directly and stay float.
 """
 from __future__ import annotations
 
@@ -80,8 +83,8 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu runs the plain versions)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 frozen-VAE path: not ported (ROADMAP Queue 1 item 5); "
-                             "refused")
+                        help="int8 frozen-VAE path for the samplers (with_vae_int8); "
+                             "--sanity-mode and --cross-mode stay float")
     parser.add_argument("--use-ema", action="store_true",
                         help="Prefer ema_model.msgpack (written by train.py --ema-decay) "
                              "over best_model/model weights")
@@ -145,6 +148,11 @@ def load_model_and_config(args):
         stats_file = osp.join(args.dataset_dir, "statistics.json")
         norm_factors = tuple(get_norm_params(stats_file)["output"])
         pred = pred.set_normalizer({"output": list(norm_factors)})
+    if getattr(args, "int8", False):
+        # the frozen VAE's convs in dynamic int8 on the samplers' paths; the
+        # VAE-only modes call the VAE directly and stay float, as in JAX
+        pred = pred.with_vae_int8()
+        print("int8 frozen-VAE path enabled")
     return pred, norm_factors
 
 
@@ -407,10 +415,6 @@ def run(argv=None) -> Result:
     """Parse ``argv``, load the run dir, evaluate the chosen split and write
     the report."""
     args = parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 (the int8 frozen-VAE path) is not ported to the PyTorch package "
-            "(ROADMAP Queue 1 item 5)")
     if args.precision:
         allow = PRECISION_ALLOWS_TF32[args.precision]
         torch.backends.cuda.matmul.allow_tf32 = allow

@@ -13,11 +13,15 @@ Candidates:
   k3[THxTW]  : the hand-written K3 kernel (csrc/conv3x3.cu) at each compiled
                tile of TH x TW output pixels a block; on the CPU the
                wrapper's plain version, once
-  xla_int8   : not ported (ROADMAP Queue 1 item 6)
+  k4_int8    : the JAX probe's int8 row (``xla_int8``) on the hand-written
+               K4 kernel (csrc/int8_conv.cu): int8 x int8 -> int32 on random
+               codes, rescaled to bf16; its max abs error is against K4's
+               plain version (0 when they agree bit for bit), its share of
+               the bound at the int8 rates
 
-Each prints ms and TFLOP/s and its max abs error against K3's plain version
-(float32 from the same bf16 inputs); K3 also prints its share of its bound
-on an H100, and each stage the tile K3's planner takes.
+Each prints ms and TFLOP/s (TOPS for int8) and its max abs error against K3's
+plain version (float32 from the same bf16 inputs); K3 and K4 also print their
+share of their bound on an H100, and each stage the tile K3's planner takes.
 On the card, times come from CUDA events around back-to-back calls; on the
 CPU (``--device cpu``) from the host clock.
 
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda import conv3x3 as k3
+from ..ops.cuda import int8_conv as k4
 from ..utils.device import resolve_device
 
 STAGES = {
@@ -44,7 +49,9 @@ STAGES = {
 }
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
+INT8_SCALE = 1e-4  # the int8 row's rescale, as the JAX probe's
 WARMUP = 3
 
 
@@ -58,6 +65,19 @@ def bound(n, h, w, cin, cout) -> dict:
     nbytes = 2 * (n * h * w * (cin + cout) + 9 * cin * cout)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops(n, h, w, cin, cout) / BF16_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def int8_bound(n, h, w, cin, cout) -> dict:
+    """Least H100 time of one int8 stage: operations at the int8 tensor-core
+    peak against the codes of x and W, the scales and the bf16 y each moved
+    once at the HBM rate."""
+    nbytes = n * h * w * (k4.padded_channels(cin) + 2 * cout) + 9 * cout * k4.padded_channels(
+        cin) + 4 * cout
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops(n, h, w, cin, cout) / INT8_OPS * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
@@ -125,8 +145,35 @@ def probe_stage(name, shape, device, iters, rng) -> list:
                 line += (f"  {100 * b['bound_ms'] / ms:.1f}% of the bound {b['bound_ms']:.3f} ms "
                          f"({b['bound_by']})")
             print(line, flush=True)
-    print("  xla_int8    : not ported (ROADMAP Queue 1 item 6)", flush=True)
+    results.append(probe_int8(name, shape, device, iters, rng))
     return results
+
+
+def probe_int8(name, shape, device, iters, rng) -> dict:
+    """The int8 row: K4 on random codes (x (N, 1, H, W, Cin), W (Cout, 1, 3, 3,
+    Cin)), zero "same" padding, rescaled by ``INT8_SCALE`` to bf16."""
+    n, h, w, cin, cout = shape
+    cp = k4.padded_channels(cin)
+    x_q = torch.from_numpy(rng.integers(-127, 128, (n, 1, h, w, cp), dtype=np.int8)).to(device)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (cout, 1, 3, 3, cp), dtype=np.int8)).to(device)
+    x_q[..., cin:] = 0
+    w_q[..., cin:] = 0
+    sw = torch.full((cout,), INT8_SCALE, device=device)
+    args = (x_q, w_q, sw, (1, 1, 1), (0, 0, 1, 1, 1, 1), torch.bfloat16)
+    b = int8_bound(*shape)
+    with torch.inference_mode():
+        err = (k4.int8_conv(*args).float() - k4.int8_conv_plain(*args).float()).abs().max().item()
+        ms = time_ms(lambda: k4.int8_conv(*args), device, iters)
+    fl = flops(*shape)
+    rec = {"stage": name, "shape": list(shape), "candidate": "k4_int8", "ms": ms,
+           "tflops": fl / ms / 1e9, "max_abs_err": err, "calls": 1 + WARMUP + iters, **b}
+    line = (f"  {'k4_int8':12s}: {ms:9.3f} ms  {rec['tflops']:7.1f} TOPS     "
+            f"max abs err {err:.3e} (against its plain version)")
+    if device.type == "cuda":
+        line += (f"  {100 * b['bound_ms'] / ms:.1f}% of the int8 bound {b['bound_ms']:.3f} ms "
+                 f"({b['bound_by']})")
+    print(line, flush=True)
+    return rec
 
 
 def main(argv=None) -> list:

@@ -19,7 +19,10 @@ Client (MFR1): send ``encode_raw_request(img, v2d, seed=7)`` and read the
 reply with ``decode_raw_response`` (both in ``utils/serving.py``).
 
 SIGTERM or SIGINT (installed before the warm-up) stops the HTTP server,
-drains every accepted request and prints the final stats.
+drains every accepted request and prints the final stats. ``--int8`` serves
+``predictor.with_vae_int8()``: the frozen VAE's convs in dynamic int8 (K4).
+Its scales are taken over the whole device batch, so an int8 result
+depends on the requests it is co-batched with and on the padding slots.
 """
 from __future__ import annotations
 
@@ -28,9 +31,6 @@ import signal
 import threading
 
 import torch
-
-INT8 = "ROADMAP.md Queue 1 item 5 (the int8 variants with_vae_int8 / with_unet_int8)"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -69,7 +69,8 @@ def parse_args(argv=None):
                    choices=("float32", "bfloat16"),
                    help="dtype of the networks' conv and matmul compute")
     p.add_argument("--int8", action="store_true",
-                   help=f"int8 frozen-VAE fast path (not ported: {INT8})")
+                   help="int8 frozen-VAE fast path (dynamic per-channel scales, shared "
+                        "by the requests of a device batch)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda",
@@ -77,10 +78,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(f"--int8 is not ported yet: {INT8}")
+def build_server(args):
+    """The predictor, the ``InferenceServer`` and its HTTP server of ``args``
+    (not yet serving, not warmed up)."""
     if bool(args.vae_encoder_path) != bool(args.vae_decoder_path):
         raise SystemExit(
             "--vae-encoder-path and --vae-decoder-path must be given "
@@ -99,6 +99,8 @@ def main(argv=None):
         args.model_dir, device=args.device, vae_path_overrides=overrides,
         use_ema=args.use_ema)
     predictor.compute_dtype = getattr(torch, args.compute_dtype)
+    if args.int8:
+        predictor = predictor.with_vae_int8()
     num_slices = int(params["training"]["predictor"].get("num_slices", 11))
 
     batch_sizes = None
@@ -112,6 +114,12 @@ def main(argv=None):
         # request happens to arrive first
         expected_shape=(num_slices, args.image_size, args.image_size))
     httpd = build_http_server(server, host=args.host, port=args.port)
+    return predictor, server, httpd
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    predictor, server, httpd = build_server(args)
 
     # handlers BEFORE the warm-up: a stop signal during it must not kill the
     # process with batches on the device; request a graceful stop instead
@@ -138,7 +146,8 @@ def main(argv=None):
     # top is the real coalescing cap
     print(f"serving {args.model_dir} on http://{args.host}:{httpd.server_address[1]} "
           f"({args.sampler}-{args.steps}, max_batch={server.max_batch}, "
-          f"{args.compute_dtype}, {predictor.device})", flush=True)
+          f"{args.compute_dtype}{', int8 VAE' if args.int8 else ''}, {predictor.device})",
+          flush=True)
     try:
         httpd.serve_forever()
     finally:

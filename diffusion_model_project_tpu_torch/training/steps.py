@@ -32,6 +32,17 @@ from ..models.layers import train_trace
 BATCH_KEYS = ("img", "U_2d", "U")
 
 
+def refuse_int8(predictor) -> None:
+    """Fail fast on an int8 predictor: the quantizers' round and clip have a
+    zero gradient almost everywhere, so training through them would yield
+    about zero gradients."""
+    if getattr(predictor, "unet_int8", False) or getattr(predictor, "vae_int8", False):
+        raise ValueError(
+            "Training through an int8 predictor (with_unet_int8/with_vae_int8) would yield "
+            "zero gradients through the round/clip quantizers; disable int8 for training "
+            "(.with_unet_int8(False).with_vae_int8(False)).")
+
+
 def batch_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """``batch``'s 'img', 'U_2d' and 'U' (tensors or arrays) as float32
     tensors on ``device``; tensors already so are returned as they are."""
@@ -134,6 +145,7 @@ def make_diffusion_train_step(
     def train_step(predictor, batch: Dict, generator: Optional[torch.Generator] = None, *,
                    noise: Optional[torch.Tensor] = None,
                    t: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        refuse_int8(predictor)
         optimizer.zero_grad(set_to_none=True)
         # both the forward and the backward: torch.utils.checkpoint recomputes
         # the decoder's blocks during backward, and must route as the forward did
@@ -278,6 +290,7 @@ def make_cached_latent_train_step(
     """``train_step(predictor, cached_batch, generator=None, *, noise=None,
     t=None) -> aux``: one optimizer step of the UNet over cached latents."""
     def train_step(predictor, batch, generator=None, *, noise=None, t=None):
+        refuse_int8(predictor)
         optimizer.zero_grad(set_to_none=True)
         with train_trace():
             loss, aux = cached_latent_loss_fn(predictor, batch, generator, noise=noise, t=t,

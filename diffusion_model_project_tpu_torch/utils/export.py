@@ -12,10 +12,11 @@ layout the JAX package calls weights-as-arguments); ``bake_weights=True``,
 the JAX layout with weights as constants of the module, has no counterpart
 and is refused.
 
-K1 (GroupNorm + activation) and K2 (self-attention) reach their kernels
-through ``ctypes``, which ``torch.export`` cannot trace, so both wrappers
-trace as registered ops (``torch.ops.dm_port.groupnorm_act`` and
-``torch.ops.dm_port.fused_attention``) whose bodies are the wrappers: the
+K1 (GroupNorm + activation), K2 (self-attention) and K4 (the int8 conv of
+an int8 predictor) reach their kernels through ``ctypes``, which
+``torch.export`` cannot trace, so the wrappers trace as registered ops
+(``torch.ops.dm_port.groupnorm_act``, ``torch.ops.dm_port.fused_attention``
+and ``torch.ops.dm_port.int8_conv``) whose bodies are the wrappers: the
 exported program launches the hand-written kernels on the card and takes
 their plain versions on the CPU. A host that loads an archive therefore
 needs torch and this package (importing this module registers the ops; the
@@ -36,15 +37,18 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-# importing the wrappers registers K1's and K2's ops, which load_sampler needs
+# importing the wrappers registers K1's, K2's and K4's ops, which load_sampler needs
 from ..ops.cuda import attention as _k2  # noqa: F401
 from ..ops.cuda import groupnorm_act as _k1  # noqa: F401
+from ..ops.cuda import int8_conv as _k4  # noqa: F401
 
 INPUT_NAMES = ("img", "velocity_2d", "noise")
 
 
 class _SamplerProgram(nn.Module):
-    """The traced function: one sampler call at fixed steps and options."""
+    """The traced function: one sampler call at fixed steps and options. The
+    predictor enters its int8 contexts inside the samplers' bodies, so an
+    int8 predictor's program traces K4's op with the quantize pass."""
 
     def __init__(self, pred, sampler: str, num_steps: int, eta: float):
         super().__init__()

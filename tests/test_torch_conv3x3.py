@@ -102,13 +102,15 @@ def test_wrapper_refuses_grad_and_bad_input():
 def test_probe_runs_a_tiny_stage_on_the_cpu():
     results = probe.main(["--device", "cpu", "--shape", "2", "8", "16", "8", "8",
                           "--iters", "1"])
-    assert [r["candidate"] for r in results] == ["conv2d_bf16", "k3[8x16]"]
+    assert [r["candidate"] for r in results] == ["conv2d_bf16", "k3[8x16]", "k4_int8"]
     flops = 2 * 9 * 2 * 8 * 16 * 8 * 8
     for r in results:
         assert r["shape"] == [2, 8, 16, 8, 8] and r["ms"] > 0
         assert r["tflops"] == pytest.approx(flops / r["ms"] / 1e9)
-        # both round a float32 sum of |values| < 8 to bf16 once: half an ulp is < 2^-6
-        assert 0 <= r["max_abs_err"] <= 2.0 ** -6
+    # both round a float32 sum of |values| < 8 to bf16 once: half an ulp is < 2^-6
+    assert all(0 <= r["max_abs_err"] <= 2.0 ** -6 for r in results[:2])
+    # the int8 row against K4's plain version: equal
+    assert results[2]["max_abs_err"] == 0 and results[2]["bound_by"] == "bytes"
 
 
 def test_probe_bound_matches_the_stage_arithmetic():

@@ -15,6 +15,7 @@ from diffusion_model_project_tpu_torch.ops.attention import multihead_attention
 from diffusion_model_project_tpu_torch.ops.cuda import attention as k2
 from diffusion_model_project_tpu_torch.ops.cuda import conv3x3 as k3
 from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
+from diffusion_model_project_tpu_torch.ops.cuda import int8_conv as k4
 
 
 @pytest.fixture
@@ -717,3 +718,167 @@ def test_served_batch_shapes_against_the_plain_versions(gen):
         torch.cuda.synchronize()
         assert k2.LAUNCHES == before + 1
         assert _rel_err(got, multihead_attention(*[a.float() for a in args], 2)) <= 1.3e-2
+
+
+# ------------------------------------------------------------------ K4 (int8)
+
+# every int8 conv of the published UNet (in 17, features 64-1024, latent 64^2)
+# at N = 2 latent slices: (Cin, Cout, H = W), 3x3, padding 1
+UNET_INT8 = [(17, 64, 64), (64, 64, 64), (64, 128, 32), (128, 128, 32), (128, 256, 16),
+             (256, 256, 16), (256, 512, 8), (512, 512, 8), (512, 1024, 4), (1024, 1024, 4),
+             (1024, 2048, 2), (2048, 2048, 2), (2048, 1024, 4), (1024, 512, 8),
+             (512, 256, 16), (256, 128, 32), (128, 64, 64)]
+# every int8 conv of the published VAE (E2D and D3D, widths 128/256/512,
+# 256^2) at B=1 and 3 slices: (Cin, Cout, H = W, kernel, stride, padding)
+_S1, _S2 = (1, 1, 1), (1, 2, 2)
+_P1, _PD, _P0 = (1, 1, 1, 1, 1, 1), (1, 1, 0, 1, 0, 1), (0,) * 6
+VAE_INT8 = [(128, 128, 256, 3, _S1, _P1), (128, 128, 256, 3, _S2, _PD),
+            (128, 256, 128, 3, _S1, _P1), (128, 256, 128, 1, _S1, _P0),
+            (256, 256, 128, 3, _S1, _P1), (256, 256, 128, 3, _S2, _PD),
+            (256, 512, 64, 3, _S1, _P1), (256, 512, 64, 1, _S1, _P0),
+            (512, 512, 64, 3, _S1, _P1), (512, 256, 128, 3, _S1, _P1),
+            (256, 128, 256, 3, _S1, _P1)]
+
+
+def _k4_inputs(gen, n, d, h, cin, cout, k):
+    cp = k4.padded_channels(cin)
+    x_q = torch.randint(-127, 128, (n, d, h, h, cp), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    x_q[..., cin:] = 0
+    kd = 1 if d == 1 else k
+    w_q = torch.randint(-127, 128, (cout, kd, k, k, cp), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    w_q[..., cin:] = 0
+    sw = torch.rand(cout, generator=gen, device="cuda") * 1e-4 + 1e-6
+    return x_q, w_q, sw
+
+
+def _k4_check(x_q, w_q, sw, stride, pads, dtype):
+    before = k4.LAUNCHES
+    got = k4.int8_conv(x_q, w_q, sw, stride, pads, dtype)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1
+    want = k4.int8_conv_plain(x_q, w_q, sw, stride, pads, dtype)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,hw", UNET_INT8)
+def test_int8_conv_kernel_at_the_unet_shapes(gen, dtype, cin, cout, hw):
+    x_q, w_q, sw = _k4_inputs(gen, 2, 1, hw, cin, cout, 3)
+    _k4_check(x_q, w_q, sw, (1, 1, 1), (0, 0, 1, 1, 1, 1), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,hw,k,stride,pads", VAE_INT8)
+def test_int8_conv_kernel_at_the_vae_shapes(gen, dtype, cin, cout, hw, k, stride, pads):
+    x_q, w_q, sw = _k4_inputs(gen, 1, 3, hw, cin, cout, k)
+    _k4_check(x_q, w_q, sw, stride, pads, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_on_the_card_equals_the_cpu(gen, dtype):
+    """The whole int8 conv (quantize on the card, K4) against the same on the
+    CPU (the plain version): the quantize pass is the same IEEE arithmetic,
+    the sums are exact, so the two agree bit for bit; ragged M and Cout."""
+    from diffusion_model_project_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(3)
+    for shape, cout, stride, pads in (((2, 17, 37, 29), 72, (1, 1), ((1, 1), (1, 1))),
+                                      ((1, 48, 3, 21, 19), 40, (1, 2, 2),
+                                       ((1, 1), (0, 1), (0, 1)))):
+        x = (torch.randn(shape, generator=g) * 3).to(dtype)
+        w = torch.randn((cout, shape[1]) + (3,) * (len(shape) - 2), generator=g) * 0.1
+        before = k4.LAUNCHES
+        got = quant.int8_conv(x.cuda(), w.cuda(), stride, pads, dtype)
+        torch.cuda.synchronize()
+        assert k4.LAUNCHES == before + 1
+        assert torch.equal(got.cpu(), quant.int8_conv(x, w, stride, pads, dtype))
+
+
+@pytest.mark.cuda
+def test_int8_conv_refuses_what_it_cannot_take(gen):
+    x_q, w_q, sw = _k4_inputs(gen, 1, 1, 8, 32, 32, 3)
+    args = ((1, 1, 1), (0, 0, 1, 1, 1, 1), torch.bfloat16)
+    with pytest.raises(TypeError, match="int8"):
+        k4.int8_conv(x_q.float(), w_q, sw, *args)
+    with pytest.raises(TypeError, match="float32"):
+        k4.int8_conv(x_q, w_q, sw.half(), *args)
+    with pytest.raises(ValueError, match="one device"):
+        k4.int8_conv(x_q, w_q.cpu(), sw, *args)
+    with pytest.raises(ValueError, match="one device"):
+        k4.int8_conv(x_q, w_q, sw.cpu(), *args)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k4.int8_conv(x_q, w_q, sw.clone().requires_grad_(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.int8_conv(x_q.transpose(2, 3), w_q, sw, *args)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(x_q.numel() + 8, dtype=torch.int8, device="cuda")
+        k4.int8_conv(flat[8:].view(x_q.shape), w_q, sw, *args)
+
+
+@pytest.mark.cuda
+def test_int8_registered_op_and_fake(gen):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    x_q, w_q, sw = _k4_inputs(gen, 2, 1, 16, 64, 64, 3)
+    args = ([1, 1, 1], [0, 0, 1, 1, 1, 1], torch.bfloat16)
+    before = k4.LAUNCHES
+    got = torch.ops.dm_port.int8_conv(x_q, w_q, sw, *args)
+    assert k4.LAUNCHES == before + 1
+    assert torch.equal(got, k4.int8_conv(x_q, w_q, sw, *args))
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        y = torch.ops.dm_port.int8_conv(*(mode.from_tensor(t) for t in (x_q, w_q, sw)), *args)
+    assert (y.shape, y.dtype) == (got.shape, got.dtype)
+    torch.library.opcheck(torch.ops.dm_port.int8_conv.default, (x_q, w_q, sw, *args),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+def test_int8_predictor_on_the_card_matches_the_cpu(no_tf32):
+    """with_vae_int8().with_unet_int8() at published widths, 128^2 x 3, B=1,
+    float32, TF32 off, DDIM-5: the card's int8 result against the CPU's. The
+    two float paths differ by ulps (sums in another order), and an ulp ahead
+    of a quantizer flips a code now and then, so two int8 runs carry
+    independent rounding noise a few int8 layers on: the card's int8
+    spread from its float32 result is within 2x of the CPU's, and card
+    against CPU within 2.5x of the CPU's spread (two independent errors of
+    one size are 2x apart), as tests/test_torch_int8_paths.py holds the port
+    to JAX."""
+    import copy
+
+    from diffusion_model_project_tpu_torch.diffusion.predictor import LatentDiffusionPredictor
+    from diffusion_model_project_tpu_torch.utils.config import (PUBLISHED_LATENT_CHANNELS,
+                                                                PUBLISHED_UNET_KWARGS)
+
+    cpu = LatentDiffusionPredictor.create(dict(PUBLISHED_UNET_KWARGS), seed=3, device="cpu",
+                                          latent_channels=PUBLISHED_LATENT_CHANNELS)
+    torch.nn.init.normal_(cpu.model.final_conv.weight, std=0.02,
+                          generator=torch.Generator().manual_seed(4))
+    cpu.set_normalizer({"input": [1.0], "output": [2.1e-2, 1.6e-2, 7.9e-3]})
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(5)
+    img = (torch.rand((1, 3, 1, 128, 128), generator=g) > 0.3).float()
+    vel = torch.randn((1, 3, 3, 128, 128), generator=g) * 1e-2
+    noise = torch.randn((3, PUBLISHED_LATENT_CHANNELS, 32, 32), generator=g)
+
+    def run(p, d):
+        return p.predict_ddim(img.to(d), vel.to(d), num_steps=5, noise=noise.to(d)).cpu()
+
+    def rel_mse(a, b):
+        return ((a - b).pow(2).mean() / b.pow(2).mean()).item()
+
+    before = k4.LAUNCHES
+    card8 = run(card.with_vae_int8().with_unet_int8(), "cuda")
+    # 16 E2D + 14 D3D convs a request, 22 a UNet forward
+    assert k4.LAUNCHES == before + 30 + 22 * 5
+    assert torch.isfinite(card8).all()
+    cpu_f32, cpu8, card_f32 = run(cpu, "cpu"), run(cpu.with_vae_int8().with_unet_int8(), "cpu"), \
+        run(card, "cuda")
+    spread, card_spread = rel_mse(cpu8, cpu_f32), rel_mse(card8, card_f32)
+    assert spread > 0 and 0.5 * spread <= card_spread <= 2 * spread
+    assert rel_mse(card8, cpu8) <= 2.5 * spread

@@ -10,9 +10,10 @@ with their own loader and evaluate DDIM-2 from shared ``--noise-dir``
 latents, ``--sanity-mode`` and ``--cross-mode``: per-sample ``nmae_total``
 and ``cosine_similarity`` within 1e-4 relative, and the JSON reports carry
 the same keys. In the port alone: DDIM at batch 1 and batch 2 (a padded
-last chunk) give the same per-sample metrics, DDPM at batch 2 and
-``--int8`` raise, the noise is the reference's torch stream, and ``run``
-writes the report.
+last chunk) give the same per-sample metrics, DDPM at batch 2 raises, the
+noise is the reference's torch stream, ``run`` writes the report, and
+``--int8`` runs the sampler on the int8 frozen VAE while ``--sanity-mode``
+stays float.
 """
 import importlib.util
 import json
@@ -178,8 +179,17 @@ def test_run_writes_the_report_and_refuses_int8(dirs, capsys):
     assert osp.exists(osp.join(out_dir, "predictions_npz", "pred_0001.npz"))
     printed = capsys.readouterr().out
     assert "[DIFF] Sample    1 (2/2)" in printed and "Steady-state (excl. first chunk)" in printed
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        port_eval.run(_argv(dirs, ["--device", "cpu", "--int8"]))
+    # --int8: the samplers on with_vae_int8(); the VAE-only modes call the VAE
+    # directly and stay float, as in the JAX script
+    one = ["--device", "cpu", "--index", "0"]
+    runs = {(mode, q): port_eval.run(_argv(dirs, one + flags + (["--int8"] if q else []) + [
+        "--output-dir", str(dirs["out"] / f"int8_{mode}_{q}")]))
+        for mode, flags in (("ddim", []), ("sanity", ["--sanity-mode"])) for q in (0, 1)}
+    assert "int8 frozen-VAE path enabled" in capsys.readouterr().out
+    assert runs["ddim", 1].predictor.vae_int8 and not runs["ddim", 0].predictor.vae_int8
+    metric = {k: r.per_sample[0]["nmae_total"] for k, r in runs.items()}
+    assert np.isfinite(metric["ddim", 1]) and metric["ddim", 1] != metric["ddim", 0]
+    assert metric["sanity", 1] == metric["sanity", 0]
     with pytest.raises(SystemExit):
         port_eval.parse_args(_argv(dirs, ["--vae-encoder-path", dirs["run"]]))
     assert port_eval.parse_args(_argv(dirs)).device == "cuda"

@@ -127,6 +127,8 @@ def test_import_chain_leaves_jax_unloaded():
             "import diffusion_model_project_tpu_torch.ops.cuda.attention\n"
             "import diffusion_model_project_tpu_torch.ops.cuda.groupnorm_act\n"
             "import diffusion_model_project_tpu_torch.ops.cuda.conv3x3\n"
+            "import diffusion_model_project_tpu_torch.ops.cuda.int8_conv\n"
+            "import diffusion_model_project_tpu_torch.ops.quant\n"
             "import diffusion_model_project_tpu_torch.scripts.perf_probe_conv\n"
             "import diffusion_model_project_tpu_torch.inference\n"
             "import diffusion_model_project_tpu_torch.data\n"

@@ -540,15 +540,33 @@ def test_raw_frame_codec_round_trip():
 # ---------------------------------------------------------------- serve CLI
 
 
-def test_serve_cli_flags_and_refusals():
+def test_serve_cli_flags_and_refusals(pred, tmp_path):
     args = serve_cli.parse_args(["--model-dir", "x"])
-    assert args.device == "cuda" and args.compute_dtype == "bfloat16"
+    assert args.device == "cuda" and args.compute_dtype == "bfloat16" and not args.int8
     assert (args.sampler, args.steps, args.max_wait_ms, args.max_pending) == ("ddim", 50,
                                                                               20.0, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        serve_cli.main(["--model-dir", "x", "--int8", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve_cli.main(["--model-dir", "x", "--vae-encoder-path", "e", "--device", "cpu"])
+    # --int8 serves with_vae_int8() of the run dir's predictor; a request's
+    # result is the predictor's own on the batch it was served in
+    run = write_run_dir(tmp_path, pred)
+    predictor, server, httpd = serve_cli.build_server(serve_cli.parse_args(
+        ["--model-dir", str(run), "--device", "cpu", "--int8", "--port", "0",
+         "--image-size", str(H), "--steps", "2", "--batch-sizes", "1",
+         "--compute-dtype", "float32"]))
+    try:
+        assert predictor.vae_int8 and not predictor.unet_int8
+        img, v2d = _volume(0)
+        got = server.predict(img, v2d, seed=5)
+    finally:
+        httpd.server_close()
+        server.close()
+    want = predictor.predict_ddim(torch.from_numpy(img[None]), torch.from_numpy(v2d[None]),
+                                  num_steps=2, noise=_noise(5)[None])[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    float_out = pred.predict_ddim(torch.from_numpy(img[None]), torch.from_numpy(v2d[None]),
+                                  num_steps=2, noise=_noise(5)[None])[0].numpy()
+    assert not np.array_equal(got, float_out)
 
 
 def write_run_dir(root, pred):
