@@ -19,6 +19,10 @@ slice) returns its tensors in the port's layout, (B*ld, C, lh, lw).
 ``with_vae_int8()`` / ``with_unet_int8()`` return a predictor that shares
 these modules and runs the frozen VAE's / UNet's convs in dynamic int8
 (``models.layers.int8_convs``); int8 never trains.
+Each sampler call records host spans (``utils.profiling.span``) while
+recording is on: ``sampler.call`` holding ``sampler.prepare`` (EDT, E2D,
+initial latents), one ``sampler.step`` a UNet evaluation with its scheduler
+update, and ``sampler.decode`` (D3D).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from ..ops.distance import distance_transform_edt
 from ..ops.normalizer import MaxNormalizer
 from ..ops.resize import interpolate_bilinear, interpolate_trilinear
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .scheduler import DiffusionScheduler, ddim_timesteps, dpm_solver_coefficients
 
 CLIP = (-30.0, 30.0)  # the samplers' x0 clip (reference predictor.py:823-884)
@@ -266,10 +271,11 @@ class LatentDiffusionPredictor(nn.Module):
 
     def _setup_sampling(self, img, velocity_2d, noise, generator):
         """Shared sampler preamble: conditioning and initial latents."""
-        img = img.to(self.device, torch.float32)
-        velocity_2d = velocity_2d.to(self.device, torch.float32)
-        z_cond, m_cond = self.prepare_conditioning(img, velocity_2d)
-        x = self._init_latent_noise(z_cond.shape, noise, generator)
+        with span("sampler.prepare"):
+            img = img.to(self.device, torch.float32)
+            velocity_2d = velocity_2d.to(self.device, torch.float32)
+            z_cond, m_cond = self.prepare_conditioning(img, velocity_2d)
+            x = self._init_latent_noise(z_cond.shape, noise, generator)
         return img, x, z_cond, m_cond
 
     def _t(self, x: torch.Tensor, t: int) -> torch.Tensor:
@@ -280,14 +286,15 @@ class LatentDiffusionPredictor(nn.Module):
         ts = ddim_timesteps(self.num_timesteps, num_steps)
         ts_prev = list(ts[1:]) + [-1]
         for t, t_prev in zip(ts, ts_prev):
-            t_batch = self._t(x, t)
-            eps = self._unet_eps(x, z_cond, m_cond, t_batch)
-            step_noise = None
-            if eta > 0:
-                step_noise = torch.randn(x.shape, generator=generator,
-                                         device=generator.device).to(x.device)
-            x = self.scheduler.ddim_sample(eps, x, t_batch, int(t_prev), eta=eta,
-                                           noise=step_noise, clip_range=CLIP)
+            with span("sampler.step"):
+                t_batch = self._t(x, t)
+                eps = self._unet_eps(x, z_cond, m_cond, t_batch)
+                step_noise = None
+                if eta > 0:
+                    step_noise = torch.randn(x.shape, generator=generator,
+                                             device=generator.device).to(x.device)
+                x = self.scheduler.ddim_sample(eps, x, t_batch, int(t_prev), eta=eta,
+                                               noise=step_noise, clip_range=CLIP)
         return x
 
     def _ddpm_loop(self, x, z_cond, m_cond, step_noise: Optional[torch.Tensor] = None,
@@ -298,22 +305,26 @@ class LatentDiffusionPredictor(nn.Module):
         if step_noise is not None:
             step_noise = step_noise.reshape((n_steps,) + tuple(x.shape)).to(x.device, torch.float32)
         for i, t in enumerate(range(n_steps - 1, -1, -1)):
-            t_batch = self._t(x, t)
-            eps = self._unet_eps(x, z_cond, m_cond, t_batch)
-            if step_noise is not None:
-                z = step_noise[i]
-            else:
-                z = torch.randn(x.shape, generator=generator, device=generator.device).to(x.device)
-            x = self.scheduler.p_sample(eps, x, t_batch, z, clip_denoised=True, clip_range=CLIP)
+            with span("sampler.step"):
+                t_batch = self._t(x, t)
+                eps = self._unet_eps(x, z_cond, m_cond, t_batch)
+                if step_noise is not None:
+                    z = step_noise[i]
+                else:
+                    z = torch.randn(x.shape, generator=generator,
+                                    device=generator.device).to(x.device)
+                x = self.scheduler.p_sample(eps, x, t_batch, z, clip_denoised=True,
+                                            clip_range=CLIP)
         return x
 
     def _one_step(self, x, z_cond, m_cond) -> torch.Tensor:
         """T = 1: x0 from the one UNet evaluation at t = 0 (reference
         predictor.py:823-838)."""
-        eps = self._unet_eps(x, z_cond, m_cond, self._t(x, 0))
-        alpha_bar = self.scheduler.alphas_cumprod[0]
-        x = (x - torch.sqrt(1 - alpha_bar) * eps) / torch.sqrt(alpha_bar)
-        return torch.clamp(x, *CLIP)
+        with span("sampler.step"):
+            eps = self._unet_eps(x, z_cond, m_cond, self._t(x, 0))
+            alpha_bar = self.scheduler.alphas_cumprod[0]
+            x = (x - torch.sqrt(1 - alpha_bar) * eps) / torch.sqrt(alpha_bar)
+            return torch.clamp(x, *CLIP)
 
     def _dpm_loop(self, x, z_cond, m_cond, num_steps: int, order: int) -> torch.Tensor:
         # a repeated node (num_steps > T) would be a zero-width step: dedupe,
@@ -322,25 +333,27 @@ class LatentDiffusionPredictor(nn.Module):
         c = dpm_solver_coefficients(self.host_alphas_cumprod(), ts, order=order)
         prev_x0 = torch.zeros_like(x)
         for i, t in enumerate(c["t"]):
-            eps = self._unet_eps(x, z_cond, m_cond, self._t(x, t))
-            x0 = (x - float(c["sigma_cur"][i]) * eps) / max(float(c["alpha_cur"][i]), 1e-8)
-            x0 = torch.clamp(x0, *CLIP)
-            d = x0 + float(c["c2"][i]) * (x0 - prev_x0)
-            x = float(c["sigma_ratio"][i]) * x + float(c["x0_coef"][i]) * d
-            prev_x0 = x0
+            with span("sampler.step"):
+                eps = self._unet_eps(x, z_cond, m_cond, self._t(x, t))
+                x0 = (x - float(c["sigma_cur"][i]) * eps) / max(float(c["alpha_cur"][i]), 1e-8)
+                x0 = torch.clamp(x0, *CLIP)
+                d = x0 + float(c["c2"][i]) * (x0 - prev_x0)
+                x = float(c["sigma_ratio"][i]) * x + float(c["x0_coef"][i]) * d
+                prev_x0 = x0
         return x
 
     def _decode_and_finish(self, x, img):
         """Latents (B*ld, C, lh, lw) -> masked velocity (B, S, 3, H, W)."""
-        b, s, h, w = img.shape[0], img.shape[1], img.shape[-2], img.shape[-1]
-        ld = x.shape[0] // b
-        z = x.reshape(b, ld, self.latent_channels, x.shape[-2], x.shape[-1]).transpose(1, 2)
-        with self._int8(self.vae_int8):
-            vel = self.vae.decode_3d(z.to(self.compute_dtype)).float()  # (B, 3, ld, H, W)
-        vel = self.normalizer["output"].inverse(vel, channel_axis=1)
-        if ld != s:
-            vel = interpolate_trilinear(vel, s, h, w)
-        return vel.transpose(1, 2) * img                            # mask over C
+        with span("sampler.decode"):
+            b, s, h, w = img.shape[0], img.shape[1], img.shape[-2], img.shape[-1]
+            ld = x.shape[0] // b
+            z = x.reshape(b, ld, self.latent_channels, x.shape[-2], x.shape[-1]).transpose(1, 2)
+            with self._int8(self.vae_int8):
+                vel = self.vae.decode_3d(z.to(self.compute_dtype)).float()  # (B, 3, ld, H, W)
+            vel = self.normalizer["output"].inverse(vel, channel_axis=1)
+            if ld != s:
+                vel = interpolate_trilinear(vel, s, h, w)
+            return vel.transpose(1, 2) * img                            # mask over C
 
     @torch.inference_mode()
     def predict(self, img: torch.Tensor, velocity_2d: torch.Tensor, *,
@@ -359,12 +372,13 @@ class LatentDiffusionPredictor(nn.Module):
         if generator is None and step_noise is None and self.num_timesteps > 1:
             raise ValueError("predict() needs a generator (or a step_noise table) for the "
                              "per-step ancestral noise")
-        img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
-        if self.num_timesteps == 1:
-            x = self._one_step(x, z_cond, m_cond)
-        else:
-            x = self._ddpm_loop(x, z_cond, m_cond, step_noise, generator)
-        return self._decode_and_finish(x, img)
+        with span("sampler.call"):
+            img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
+            if self.num_timesteps == 1:
+                x = self._one_step(x, z_cond, m_cond)
+            else:
+                x = self._ddpm_loop(x, z_cond, m_cond, step_noise, generator)
+            return self._decode_and_finish(x, img)
 
     @torch.inference_mode()
     def predict_ddim(self, img: torch.Tensor, velocity_2d: torch.Tensor,
@@ -375,9 +389,10 @@ class LatentDiffusionPredictor(nn.Module):
         step noise from ``generator``."""
         if eta > 0 and generator is None:
             raise ValueError("predict_ddim(eta>0) draws stochastic step noise; pass generator=")
-        img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
-        x = self._ddim_loop(x, z_cond, m_cond, num_steps, eta, generator)
-        return self._decode_and_finish(x, img)
+        with span("sampler.call"):
+            img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
+            x = self._ddim_loop(x, z_cond, m_cond, num_steps, eta, generator)
+            return self._decode_and_finish(x, img)
 
     @torch.inference_mode()
     def predict_dpm(self, img: torch.Tensor, velocity_2d: torch.Tensor,
@@ -387,6 +402,7 @@ class LatentDiffusionPredictor(nn.Module):
         """Multistep DPM-Solver++ (deterministic; ``order`` 1 or 2) over the
         DDIM timestep spacing, one UNet evaluation a distinct timestep.
         ``order=1`` is DDIM(eta=0) while the x0 clip is inactive."""
-        img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
-        x = self._dpm_loop(x, z_cond, m_cond, num_steps, order)
-        return self._decode_and_finish(x, img)
+        with span("sampler.call"):
+            img, x, z_cond, m_cond = self._setup_sampling(img, velocity_2d, noise, generator)
+            x = self._dpm_loop(x, z_cond, m_cond, num_steps, order)
+            return self._decode_and_finish(x, img)

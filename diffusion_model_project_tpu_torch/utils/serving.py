@@ -29,10 +29,22 @@ daemon keeps one predictor resident and batches requests:
 
 The MFR1 raw frame format is byte for byte the JAX package's, so clients of
 either server talk to both.
+
+While span recording is on (``utils.profiling.enable_spans``) the daemon
+records:
+- per request, on the submitting thread: ``serve.queued`` (submit to the
+  batcher taking the request, its id paired with its batch's);
+- on the batcher, with the batch's id: ``serve.wait`` (on an empty queue),
+  ``serve.coalesce`` (first request taken to the window's close),
+  ``serve.dispatch`` holding ``serve.assemble`` (the staged inputs and the
+  noise), the sampler's ``sampler.call`` and ``serve.copy_out``, then
+  ``serve.backpressure`` (blocked with two batches in flight).
+Queue waits are kept for ``stats()`` whether recording is on or off.
 """
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import math
 import queue
@@ -47,6 +59,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .profiling import record_span, span
 
 _SHUTDOWN = object()
 
@@ -164,6 +178,19 @@ class _Request:
     v2d: np.ndarray  # (S, 3, H, W) float32, 2D velocity conditioning
     seed: int
     future: Future
+    rid: int          # the request's id, in order of submission
+    t_arrive: float   # time.perf_counter() at submit
+    thread: int       # the submitting thread
+
+
+def _summary(values) -> dict:
+    """p50 / p99 (nearest rank: ceil(0.99n)-1; int(0.99n) is n-1 for every
+    n <= 100, which would just alias max) / max / window of ``values``."""
+    ms = sorted(values)
+    return {"p50": round(ms[len(ms) // 2], 1),
+            "p99": round(ms[max(0, math.ceil(0.99 * len(ms)) - 1)], 1),
+            "max": round(ms[-1], 1),
+            "window": len(ms)}
 
 
 class InferenceServer:
@@ -256,6 +283,9 @@ class InferenceServer:
         # sampler AND the result's copy to the host): the operator-facing
         # half of per-request latency, surfaced via stats()/healthz
         self._batch_ms = deque(maxlen=100)
+        # submit->taken into a batch of the last 100 requests: the other half
+        self._queue_wait_ms = deque(maxlen=100)
+        self._rids = itertools.count()
         self._closed = False
         # two-stage pipeline: the batcher thread collects and enqueues a
         # batch's kernels and its copy to pinned host memory, the completion
@@ -265,6 +295,7 @@ class InferenceServer:
         # and device memory.
         self._inflight: "queue.Queue" = queue.Queue(maxsize=2)
         self._last_done = None  # the last dispatched batch's event (batcher only)
+        self._bids = itertools.count()  # batch ids (batcher only)
         self._thread = threading.Thread(
             target=self._loop, name="inference-batcher", daemon=True)
         self._completion = threading.Thread(
@@ -295,6 +326,8 @@ class InferenceServer:
 
     def submit(self, img: np.ndarray, v2d: np.ndarray,
                seed: int = 0) -> Future:
+        """Queue one request; the future carries the request's id as
+        ``request_id``."""
         img = np.asarray(img, np.float32)
         v2d = np.asarray(v2d, np.float32)
         if img.ndim != 4 or img.shape[1] != 1:
@@ -326,10 +359,12 @@ class InferenceServer:
                     f"request shape (S,H,W)={shape} != the server's pinned "
                     f"{self._shape}; run one server per volume geometry")
             self._stats["requests"] += 1
+            rid = fut.request_id = next(self._rids)
             # enqueue under the lock: close() also holds it while putting the
             # shutdown sentinel, so no request can land AFTER the sentinel
             # (which would leave its future forever unresolved)
-            self._queue.put(_Request(img, v2d, int(seed), fut))
+            self._queue.put(_Request(img, v2d, int(seed), fut, rid, time.perf_counter(),
+                                     threading.get_ident()))
         return fut
 
     def predict(self, img: np.ndarray, v2d: np.ndarray,
@@ -362,16 +397,9 @@ class InferenceServer:
                        sampler=self.sampler, num_steps=self.num_steps,
                        max_batch=self.max_batch)
             if self._batch_ms:
-                ms = sorted(self._batch_ms)
-                # nearest-rank p99: ceil(0.99n)-1 (int(0.99n) is n-1 for
-                # every n <= 100, which would just alias max)
-                p99_idx = max(0, math.ceil(0.99 * len(ms)) - 1)
-                out["batch_ms"] = {
-                    "p50": round(ms[len(ms) // 2], 1),
-                    "p99": round(ms[p99_idx], 1),
-                    "max": round(ms[-1], 1),
-                    "window": len(ms),
-                }
+                out["batch_ms"] = _summary(self._batch_ms)
+            if self._queue_wait_ms:
+                out["queue_wait_ms"] = _summary(self._queue_wait_ms)
             return out
 
     def close(self, timeout: Optional[float] = None) -> None:
@@ -415,42 +443,60 @@ class InferenceServer:
         self._enter_device()
         held = None  # a differently-shaped request deferred to its own batch
         while True:
-            req = held or self._queue.get()
+            bid = next(self._bids)
+            req = held
+            if req is None:
+                with span("serve.wait", bid):
+                    req = self._queue.get()
             held = None
             if req is _SHUTDOWN:
                 self._inflight.put(_SHUTDOWN)
                 return
+            taken = [time.perf_counter()]
             batch = [req]
             shape0 = (req.img.shape[0], *req.img.shape[2:])
             deadline = time.monotonic() + self._max_wait_s
             stop = False
-            while len(batch) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self._queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if nxt is _SHUTDOWN:
-                    stop = True
-                    break
-                # never co-batch mixed shapes: around an unproven-pin drop
-                # and re-pin, old-shape and new-shape requests can coexist
-                # in the queue; stacking them would fail BOTH — the
-                # straggler opens the next batch
-                if (nxt.img.shape[0], *nxt.img.shape[2:]) != shape0:
-                    held = nxt
-                    break
-                batch.append(nxt)
-            self._dispatch_batch(batch)
+            with span("serve.coalesce", bid):
+                while len(batch) < self.max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if nxt is _SHUTDOWN:
+                        stop = True
+                        break
+                    # never co-batch mixed shapes: around an unproven-pin drop
+                    # and re-pin, old-shape and new-shape requests can coexist
+                    # in the queue; stacking them would fail BOTH — the
+                    # straggler opens the next batch
+                    if (nxt.img.shape[0], *nxt.img.shape[2:]) != shape0:
+                        held = nxt
+                        break
+                    batch.append(nxt)
+                    taken.append(time.perf_counter())
+            self._queued(batch, taken, bid)
+            self._dispatch_batch(batch, bid)
             if stop:
                 if held is not None:  # straggler raced the shutdown sentinel
-                    self._dispatch_batch([held])
+                    bid = next(self._bids)
+                    self._queued([held], [time.perf_counter()], bid)
+                    self._dispatch_batch([held], bid)
                 self._inflight.put(_SHUTDOWN)
                 return
 
-    def _dispatch_batch(self, batch) -> None:
+    def _queued(self, batch, taken, bid: int) -> None:
+        """Keep each request's wait from submit to being taken into batch
+        ``bid`` (and record it as a ``serve.queued`` span)."""
+        with self._lock:
+            self._queue_wait_ms.extend((t - r.t_arrive) * 1e3 for r, t in zip(batch, taken))
+        for r, t in zip(batch, taken):
+            record_span("serve.queued", (r.rid, bid), r.t_arrive, t, r.thread)
+
+    def _dispatch_batch(self, batch, bid: int) -> None:
         """Stage 1: assemble the batch, enqueue the sampler's kernels and the
         result's copy to pinned host memory, record an event, and hand the
         batch to the completion thread; blocks only when 2 batches are
@@ -463,29 +509,32 @@ class InferenceServer:
         padded = batch + [batch[-1]] * (size - true_n)
         t_dispatch = time.monotonic()
         try:
-            with torch.inference_mode():
-                img = self._stage([r.img for r in padded])
-                v2d = self._stage([r.v2d for r in padded])
-                # geometry from the batch itself, not self._shape: after an
-                # unproven pin is dropped, an old-shape failure and a
-                # new-shape batch can be in flight around the same re-pin
-                s, h, w = batch[0].img.shape[0], *batch[0].img.shape[2:]
-                # latent geometry: two stride-2 encoder stages -> /4 spatial,
-                # depth shrinks by vae_depth_factor (the eval CLI's noise)
-                ld = s // self._pred.vae_depth_factor
-                shape = (ld, self._pred.latent_channels, h // 4, w // 4)
-                noise = self._stage([request_noise(r.seed, shape).numpy() for r in padded])
+            with torch.inference_mode(), span("serve.dispatch", bid):
+                with span("serve.assemble", bid):
+                    img = self._stage([r.img for r in padded])
+                    v2d = self._stage([r.v2d for r in padded])
+                    # geometry from the batch itself, not self._shape: after an
+                    # unproven pin is dropped, an old-shape failure and a
+                    # new-shape batch can be in flight around the same re-pin
+                    s, h, w = batch[0].img.shape[0], *batch[0].img.shape[2:]
+                    # latent geometry: two stride-2 encoder stages -> /4 spatial,
+                    # depth shrinks by vae_depth_factor (the eval CLI's noise)
+                    ld = s // self._pred.vae_depth_factor
+                    shape = (ld, self._pred.latent_channels, h // 4, w // 4)
+                    noise = self._stage([request_noise(r.seed, shape).numpy() for r in padded])
                 # the inputs' copies are queued, not waited for: the previous
                 # batch may still be on the device while this one is queued
                 prev = self._last_done
                 overlapped = prev is not None and not prev.query()
                 out_dev = self._fn(self._pred, img, v2d, noise)
-                out, done = self._copy_out(out_dev)
+                with span("serve.copy_out", bid):
+                    out, done = self._copy_out(out_dev)
         except Exception as exc:
             self._deliver_failure(batch, exc)
             return
         self._last_done = done
-        self._inflight.put((out, done, batch, size - true_n, t_dispatch, overlapped))
+        with span("serve.backpressure", bid):
+            self._inflight.put((out, done, batch, size - true_n, t_dispatch, overlapped))
 
     def _stage(self, arrays) -> torch.Tensor:
         """Stack host arrays into one batch on the device. On the card the

@@ -4,10 +4,9 @@ CLI's ``--profile-dir`` / ``--debug-nans`` on the CPU.
 ``profile_trace`` writes a ``torch.profiler`` trace with the ``annotate``
 regions in it; ``enable_nan_debugging`` raises ``FloatingPointError`` naming
 the module whose forward output, or the gradient reaching it, holds a NaN or
-Inf, and anomaly mode stops a backward function that returns a NaN;
-``StepTimer`` is the JAX package's. The train CLI traces epoch 0 into
-``--profile-dir`` and, with ``--debug-nans``, stops at the first module a
-NaN in the data reaches.
+Inf, and anomaly mode stops a backward function that returns a NaN. The
+train CLI traces epoch 0 into ``--profile-dir`` and, with ``--debug-nans``,
+stops at the first module a NaN in the data reaches.
 """
 import json
 import os
@@ -16,8 +15,6 @@ import numpy as np
 import pytest
 import torch
 from torch import nn
-
-from diffusion_model_project_tpu.utils import profiling as jprofiling
 
 from diffusion_model_project_tpu_torch import train as cli
 from diffusion_model_project_tpu_torch.utils import profiling
@@ -84,20 +81,6 @@ def test_nan_debugging_switches_off():
     assert not torch.is_anomaly_enabled()
     out = nn.Linear(2, 2)(torch.full((1, 2), float("nan")))
     assert torch.isnan(out).all()
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    ticks = [0.0, 0.5, 1.0, 1.25, 2.0, 2.0 + 1 / 3]
-    ours, theirs = profiling.StepTimer(alpha=0.25), jprofiling.StepTimer(alpha=0.25)
-    for timer, module in ((ours, profiling.time), (theirs, jprofiling.time)):
-        it = iter(ticks)
-        monkeypatch.setattr(module, "perf_counter", lambda it=it: next(it))
-        assert timer.steps_per_sec == 0.0
-        for _ in range(3):
-            timer.start()
-            timer.stop()
-    assert ours.ema == pytest.approx(theirs.ema, rel=1e-12)
-    assert ours.steps_per_sec == pytest.approx(theirs.steps_per_sec, rel=1e-12)
 
 
 @pytest.fixture(scope="module")

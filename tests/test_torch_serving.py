@@ -185,6 +185,9 @@ def test_single_request_is_padded_not_retraced(pred):
     assert stats["padded_slots"] == 3  # padded to the one batch shape
     assert stats["batch_ms"]["window"] == 1
     assert stats["batch_ms"]["p50"] > 0
+    # submit -> taken into a batch, well under the batch's own time
+    wait = stats["queue_wait_ms"]
+    assert wait["window"] == 1 and 0 <= wait["p50"] == wait["max"] <= stats["batch_ms"]["p50"]
     assert_close(got, _direct(pred, img, v2d, seed=42))
 
 
@@ -264,6 +267,7 @@ def test_batch_size_ladder_latency_mode(pred):
         server._fn = real_fn
         stats2 = server.stats()
         assert stats2["batches"] - stats1["batches"] <= 3
+        assert stats2["queue_wait_ms"]["window"] == 4  # every request, no warm-up
         assert server.batch_sizes == (1, 4)
     with pytest.raises(ValueError, match="positive"):
         InferenceServer(pred, batch_sizes=(0, 4))
