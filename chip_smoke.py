@@ -14,7 +14,8 @@ non-zero without printing a result line:
      weights with nonzero final_conv / proj_out) runs predict_ddim(50) on 2
      volumes: once to warm up (recording every GroupNorm and attention shape
      it meets), once with the kernels' launch counters set to 0 (each must
-     equal the main path's GroupNorm / attention call count), then timed;
+     equal the main path's GroupNorm / attention call count, and every K1
+     launch be on channels-last x, LAUNCHES_CHANNELS_LAST), then timed;
      then one UNet forward under torch.profiler: K1's and K2's device time
      in it (K1 against the kernels its planner gives each call);
   4. kernels: each kernel against its plain PyTorch version on the card at
@@ -25,7 +26,10 @@ non-zero without printing a result line:
      into QKV GEMM, core and output GEMM), plain, library (one PyTorch call,
      used nowhere in the port; back to back and device) and bound times;
      K1's path and cluster size at each shape, and its device time a
-     request split into the UNet's and the VAE's calls;
+     request split into the UNet's and the VAE's calls; K1 once more on
+     channels-last x at each shape (the samplers' layout on the card), rows
+     of their own: the table's K1 entry totals those, its "channels_first"
+     the others;
   5. conv probe: the port's conv probe (scripts/perf_probe_conv.py) over
      stages A, B and C with the launch counters set to 0 (K3 and K4, its
      int8 row, must have launched as often as the probe called them, K1 and
@@ -65,7 +69,8 @@ non-zero without printing a result line:
      time, the device time from torch.profiler around its predictor's
      predict() on the same inputs and generator;
   9. cli kernels: phase 4 at the shapes and dtype phase 8 recorded, with the
-     float32 tolerances, calls counted a DDIM-50 request of the CLI;
+     float32 tolerances, calls counted a DDIM-50 request of the CLI (K1's
+     "cli" totals its channels-last rows);
  10. evaluation: on phase 8's dirs, float32, each with the launch counters
      set to 0 and held to the counts derived from the modules (K3 never):
      evaluate at B=2 (finite loss, test_result.txt, seconds a batch);
@@ -142,7 +147,8 @@ non-zero without printing a result line:
      epoch with --profile-dir writes a trace with CUDA kernels, and
      --debug-nans on data carrying a NaN raises naming a module;
  17. serve kernels: phase 4 at the pairs of phase 16 that no earlier phase
-     held (UNet N=88 and VAE B=8, bf16).
+     held (UNet N=88 and VAE B=8, bf16), K1 on channels-last x, the served
+     samplers' layout.
  18. wide attention: K2 against its plain version at attention shapes beyond
      the published UNet's (WIDE_K2_SHAPES: head dims 32 to 2,048, 48 through
      zero-padded weights, up to 11,264 tokens), bf16 and float32, with
@@ -510,15 +516,17 @@ def phase_slice() -> dict:
         h.remove()
 
     exp_gn, exp_attn = expected_calls(pred, STEPS)
-    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+    k1.LAUNCHES = k1.LAUNCHES_CHANNELS_LAST = k2.LAUNCHES = k3.LAUNCHES = 0
     out = pred.predict_ddim(img, vel, num_steps=STEPS, noise=noise)
     torch.cuda.synchronize()
     launches = {"groupnorm_act": k1.LAUNCHES, "fused_attention": k2.LAUNCHES}
-    log(f"[slice] launches in one predict_ddim({STEPS}) at B={B}: {launches}, conv3x3 "
-        f"{k3.LAUNCHES} (expected groupnorm_act {exp_gn}, fused_attention {exp_attn}, conv3x3 0)")
-    if launches != {"groupnorm_act": exp_gn, "fused_attention": exp_attn} or k3.LAUNCHES:
+    log(f"[slice] launches in one predict_ddim({STEPS}) at B={B}: {launches}, K1 on "
+        f"channels-last x {k1.LAUNCHES_CHANNELS_LAST}, conv3x3 {k3.LAUNCHES} (expected "
+        f"groupnorm_act {exp_gn}, all channels-last, fused_attention {exp_attn}, conv3x3 0)")
+    if launches != {"groupnorm_act": exp_gn, "fused_attention": exp_attn} or k3.LAUNCHES \
+            or k1.LAUNCHES_CHANNELS_LAST != exp_gn:
         raise RuntimeError(f"main path did not go through the kernels as expected: {launches}, "
-                           f"conv3x3 {k3.LAUNCHES}")
+                           f"K1 channels-last {k1.LAUNCHES_CHANNELS_LAST}, conv3x3 {k3.LAUNCHES}")
     if tuple(out.shape) != (B, S, 3, HW, HW) or not torch.isfinite(out).all():
         raise RuntimeError(f"bad output: shape {tuple(out.shape)}, "
                            f"finite {bool(torch.isfinite(out).all())}")
@@ -622,11 +630,14 @@ def k1_library_call(x, w, b, groups: int, act: str):
     return lambda: post(F.group_norm(x, groups, wb, bb))
 
 
-def _k1_case(shape, groups, act, gen, dtype=torch.bfloat16):
+def _k1_case(shape, groups, act, gen, dtype=torch.bfloat16, channels_last=False):
+    from diffusion_model_project_tpu_torch.ops.basic import to_channels_last
     from diffusion_model_project_tpu_torch.ops.cuda import groupnorm_act as k1
 
     c = shape[1]
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if channels_last:
+        x = to_channels_last(x)
     w = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
     b = 0.1 * torch.randn(c, generator=gen, device="cuda")
     got = k1.groupnorm_act(x, w, b, groups, act).float()
@@ -702,19 +713,28 @@ def _k2_case(shape, heads, gen, dtype=torch.bfloat16):
 DTYPES = {str(d): d for d in (torch.bfloat16, torch.float32)}
 
 
-def phase_kernels(shapes: dict, launches: dict, tag: str = "kernels") -> list:
+def phase_kernels(shapes: dict, launches: dict, tag: str = "kernels",
+                  k1_layouts: tuple = (False,)) -> list:
     """Each kernel against its plain version at every (shape, dtype) of
-    ``shapes`` (from :func:`record_shapes`), calls counted a request."""
+    ``shapes`` (from :func:`record_shapes`), calls counted a request; K1
+    once on each layout of ``k1_layouts`` (channels-last or not), a row
+    each."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
-    for key, calls in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+    cases = [(key, calls, cl)
+             for key, calls in sorted(shapes.items(), key=lambda kv: str(kv[0]))
+             for cl in (k1_layouts if key[0] == "groupnorm_act" else (False,))]
+    for key, calls, channels_last in cases:
         dtype = DTYPES[key[-1]]
         f32 = dtype == torch.float32
         if key[0] == "groupnorm_act":
             _, shape, groups, act, _ = key
-            err, rel, nbytes, flops, times = _k1_case(shape, groups, act, gen, dtype)
+            err, rel, nbytes, flops, times = _k1_case(shape, groups, act, gen, dtype,
+                                                      channels_last)
             tol, label, peak = (K1_TOL_F32 if f32 else K1_TOL,
                                 f"G={groups} act={act or 'none'}", F32_FLOPS)
+            if channels_last:
+                label += " channels-last"
         else:
             _, shape, heads, _ = key
             err, rel, nbytes, flops, times = _k2_case(shape, heads, gen, dtype)
@@ -727,7 +747,7 @@ def phase_kernels(shapes: dict, launches: dict, tag: str = "kernels") -> list:
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         row = dict(kernel=key[0], shape=list(shape), dtype=key[-1], detail=label,
-                   calls_per_request=calls,
+                   channels_last=channels_last, calls_per_request=calls,
                    max_abs_err=err, rel_err=rel, tol=tol, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, flops=flops, bytes_ms=bytes_ms,
                    ops_ms=ops_ms, **times)
@@ -752,15 +772,22 @@ def phase_kernels(shapes: dict, launches: dict, tag: str = "kernels") -> list:
         if not any(r["kernel"] == name for r in rows):
             raise RuntimeError(f"no shape of {name} was checked")
     k1_parts = {}
-    for part, ndim in (("unet", 4), ("vae", 5)):
-        rs = [r for r in rows if r["kernel"] == "groupnorm_act" and len(r["shape"]) == ndim]
+    for part, ndim, cl in (("unet", 4, False), ("vae", 5, False),
+                           ("unet channels-last", 4, True), ("vae channels-last", 5, True)):
+        rs = [r for r in rows if r["kernel"] == "groupnorm_act" and len(r["shape"]) == ndim
+              and r["channels_last"] == cl]
+        if not rs:
+            continue
         k1_parts[part] = {k: sum(r[k] * r["calls_per_request"] for r in rs)
                           for k in ("device_ms", "bound_ms", "ms")}
         k1_parts[part]["calls"] = sum(r["calls_per_request"] for r in rs)
     log(f"[{tag}] K1 a request (ms): " + "; ".join(
         f"{part} ({v['calls']} calls) device {v['device_ms']:.3f}, bound {v['bound_ms']:.3f}, "
         f"back to back {v['ms']:.3f}" for part, v in k1_parts.items())
-        + f"; total device {sum(v['device_ms'] for v in k1_parts.values()):.3f}")
+        + "; total device " + ", ".join(
+            ("channels-last " if cl else "")
+            + f"{sum(v['device_ms'] for p, v in k1_parts.items() if ('last' in p) == cl):.3f}"
+            for cl in k1_layouts))
     return rows, k1_parts
 
 
@@ -3452,8 +3479,10 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
               vae_paths: list, vae_k1: dict, serve_rows: list, serve_paths: list,
               sv: dict, wide_rows: list, search_paths: list) -> list:
     """One entry per kernel; times are per request of its path: one
-    predict_ddim for K1 and K2, one call at each probe stage (the planner's
-    tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
+    predict_ddim for K1 (on channels-last x, the samplers' layout on the
+    card, as in ``cli`` and ``serving``; ``channels_first`` the request's
+    calls on channels-first x) and K2, one call at each probe stage (the
+    planner's tile) for K3. ``launches`` is the DDIM slice's count (the conv probe's
     for K3), ``launches_by_path`` every counted path's; ``cli`` holds K1 and
     K2 at the CLI's own shapes and dtype, a DDIM-50 request of the CLI;
     ``evaluation`` at the evaluation paths' (shape, dtype) pairs that no
@@ -3477,11 +3506,18 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
     }
     out = []
     for name, (source, replaces) in meta.items():
+        # the samplers' K1 calls (the request, the CLI, serving) run on
+        # channels-last x; the channels-first rows of the request apart
+        sampled = lambda rs: [r for r in rs if r["kernel"] == name  # noqa: E731
+                              and r.get("channels_last", False) == (name == "groupnorm_act")]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches[name],
                  "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-                 **_totals([r for r in rows if r["kernel"] == name])}
-        cli = [r for r in cli_rows if r["kernel"] == name]
+                 **_totals(sampled(rows))}
+        if name == "groupnorm_act":
+            entry["channels_first"] = _totals(
+                [r for r in rows if r["kernel"] == name and not r["channels_last"]])
+        cli = sampled(cli_rows)
         if cli:
             entry["cli"] = {"dtypes": sorted({r["dtype"] for r in cli}),
                             "launches": by_path["cli_ddim"][name],
@@ -3507,7 +3543,7 @@ def summarize(rows: list, launches: dict, by_path: dict, cli_rows: list, eval_ro
             entry["vae_training"].update({"dtypes": sorted({r["dtype"] for r in vr}),
                                           "rel_err": max(r["rel_err"] for r in vr),
                                           "tol": max(r["tol"] for r in vr), **_totals(vr)})
-        sr = [r for r in serve_rows if r["kernel"] == name]
+        sr = sampled(serve_rows)
         entry["serving"] = {"launches": {p: by_path[p][name] for p in serve_paths},
                             "per_dispatch": {k: sv[k]["per_dispatch"].get(name, 0)
                                              for k in ("ddim50", "dpm10")}}
@@ -3563,7 +3599,7 @@ def main() -> int:
     sl = phase_slice()
     tallies.append(profiler_check("after the slice"))
     mark = dict(PROFILER)
-    rows, k1_parts = phase_kernels(sl["shapes"], sl["launches"])
+    rows, k1_parts = phase_kernels(sl["shapes"], sl["launches"], k1_layouts=(False, True))
     tallies.append(tally("kernels", mark))
     mark = dict(PROFILER)
     wide_rows = phase_wide_attention()
@@ -3581,7 +3617,7 @@ def main() -> int:
         mark = dict(PROFILER)
         cli_rows, cli_k1_parts = phase_kernels(
             ep["shapes"], {k: v for k, v in ep["runs"]["ddim"]["launches"].items() if v},
-            tag="cli kernels")
+            tag="cli kernels", k1_layouts=(False, True))
         tallies.append(tally("cli kernels", mark))
         ev = phase_evaluation(device["nvidia_smi"], run_dir, vae_dir, data_dir, written_pred,
                               set(sl["shapes"]) | set(ep["shapes"]))
@@ -3634,7 +3670,8 @@ def main() -> int:
     if sv["new_shapes"]:
         mark = dict(PROFILER)
         serve_rows, serve_k1_parts = phase_kernels(
-            sv["new_shapes"], {k[0]: 1 for k in sv["new_shapes"]}, tag="serve kernels")
+            sv["new_shapes"], {k[0]: 1 for k in sv["new_shapes"]}, tag="serve kernels",
+            k1_layouts=(True,))
         tallies.append(tally("serve kernels", mark))
     cvc = phase_card_vs_cpu()
     eval_paths = {"evaluate": ev["evaluate"]["launches"],

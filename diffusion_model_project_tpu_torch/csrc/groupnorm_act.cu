@@ -1,4 +1,5 @@
-// GroupNorm + activation (K1) for Hopper, channels-first (N, C, *spatial).
+// GroupNorm + activation (K1) for Hopper, on channels-first (N, C, *spatial)
+// or channels-last (N, *spatial, C) storage of an (N, C, *spatial) tensor.
 //
 // Replaces the TPU kernel
 //   diffusion_model_project_tpu/ops/pallas/groupnorm_silu.py::fused_groupnorm_act
@@ -50,6 +51,23 @@
 //     warp 0 merges the group's partials (a fixed order, the same result in
 //     every block), then normalizes it as in 4. The grid is chunks x groups:
 //     thousands of blocks at the published shape.
+//
+// Channels-last (the sampler's activations on the card, so that cuDNN's
+// convs around K1 take and give NHWC / NDHWC without transposing): element
+// i of a sample lies in channel i % C.
+//   cluster, G = 1 (the UNet): a group is still one contiguous sample, so the
+//     path above runs as it is, with a (gamma, beta) table of all C channels
+//     and the channel stepped one an element (normalize_cl).
+//   rows, any G (the VAE's GN(32), whose groups are strided by C): two
+//     launches over the same grid (row ranges, samples). gn_partial_cl: each
+//     thread keeps one 16-byte vector of channels of the (rows x C) range,
+//     sums x - shift and (x - shift)^2 per channel down its rows (the shift
+//     a group's first element of the range), the block adds them per
+//     channel, then per group in a fixed order, and writes each group's
+//     (count, mean, M2). gn_apply_cl: each warp merges its groups' partials
+//     over the sample's ranges in a fixed order (the same statistics in every
+//     block), then the threads normalize the range, one channel vector each,
+//     (gamma * rstd, beta, mean) of its channels in registers. x is read twice.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -351,14 +369,75 @@ __device__ __forceinline__ void normalize(const T* src, T* __restrict__ dst, int
   }
 }
 
+// normalize for a channels-last sample (G = 1): element i lies in channel
+// i % C, (gamma, beta) of every channel in tab. Where C is a whole number of
+// vectors, each vector lies in V consecutive channels, kept in registers
+// while the thread's channel does not move (at C dividing kThreads * V, the
+// UNet's, never); else the channel steps one an element.
+template <typename T, bool kVec, int ACT>
+__device__ __forceinline__ void normalize_cl(const T* src, T* __restrict__ dst, int lo, int n,
+                                             int C, const float2* tab, float mean, float rstd) {
+  constexpr int V = Vec<T>::N;
+  if (kVec && C % V == 0) {
+    const int nv = n / V, dc = kThreads * V % C;
+    int c = (lo + threadIdx.x * V) % C, cc = -1;
+    float a[V], b[V];
+    for (int v = threadIdx.x; v < nv; v += kThreads) {
+      if (c != cc) {
+        cc = c;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float2 gb = tab[c + j];
+          a[j] = gb.x * rstd;
+          b[j] = gb.y;
+        }
+      }
+      float e[V];
+      load_vec(src + v * V, e);
+#pragma unroll
+      for (int j = 0; j < V; ++j) e[j] = activate<T, ACT>((e[j] - mean) * a[j] + b[j]);
+      store_vec(dst + v * V, e);
+      c += dc;
+      if (c >= C) c -= C;
+    }
+  } else if (kVec) {  // vectors straddle rows of C: the channel steps per element
+    const int nv = n / V, dc = kThreads * V % C;
+    int c = (lo + threadIdx.x * V) % C;
+    for (int v = threadIdx.x; v < nv; v += kThreads) {
+      float e[V];
+      load_vec(src + v * V, e);
+      int cj = c;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float2 gb = tab[cj];
+        e[j] = activate<T, ACT>((e[j] - mean) * (gb.x * rstd) + gb.y);
+        if (++cj == C) cj = 0;
+      }
+      store_vec(dst + v * V, e);
+      c += dc;
+      if (c >= C) c -= C;
+    }
+  } else {  // the scalar variant
+    const int dc = kThreads % C;
+    int c = (lo + threadIdx.x) % C;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float2 gb = tab[c];
+      from_f32(activate<T, ACT>((to_f32(src[i]) - mean) * (gb.x * rstd) + gb.y), dst + i);
+      c += dc;
+      if (c >= C) c -= C;
+    }
+  }
+}
+
 // Path cluster: grid (groups x k), cluster (k, 1, 1). Block `rank` of
 // cluster g holds elements [rank * slice, min(L, (rank + 1) * slice)) of
-// group g.
-template <typename T, bool kVec, int ACT>
-__global__ void __launch_bounds__(kThreads, 1)
-gn_cluster(const T* __restrict__ x, const float* __restrict__ gamma,
-           const float* __restrict__ beta, T* __restrict__ y, int L, int S, int G, int cpg,
-           int slice, float eps) {
+// group g. kCL: x is channels-last and G = 1, so group g is sample g and
+// the table holds all cpg = C channels.
+template <typename T, bool kVec, int ACT, bool kCL>
+__device__ __forceinline__ void cluster_body(const T* __restrict__ x,
+                                             const float* __restrict__ gamma,
+                                             const float* __restrict__ beta, T* __restrict__ y,
+                                             int L, int S, int G, int cpg, int slice, float eps) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + kXbar);
@@ -372,9 +451,10 @@ gn_cluster(const T* __restrict__ x, const float* __restrict__ gamma,
   const T* src = x + (long long)g * L + lo;
 
   init_barriers<T, kVec>(n, bars, k > 1 ? xbar : nullptr);
-  // (gamma, beta) of the slice's channels: the first into registers before
-  // the copies start, into the table once they have landed
-  const int c0 = g % G * cpg, q0 = lo / S, nch = n > 0 ? (lo + n - 1) / S - q0 + 1 : 0;
+  // (gamma, beta) of the slice's channels (kCL: of all C), the first into
+  // registers before the copies start, into the table once they have landed
+  const int c0 = kCL ? 0 : g % G * cpg, q0 = kCL ? 0 : lo / S;
+  const int nch = kCL ? cpg : n > 0 ? (lo + n - 1) / S - q0 + 1 : 0;
   const int ch = c0 + q0 + threadIdx.x;
   const float2 gb = threadIdx.x < nch ? make_float2(gamma[ch], beta[ch]) : make_float2(0.f, 0.f);
   __syncthreads();  // the barriers are set up
@@ -415,8 +495,28 @@ gn_cluster(const T* __restrict__ x, const float* __restrict__ gamma,
               __shfl_sync(0xffffffffu, t.m2, 0)};
   }
   const float rstd = rsqrtf(fmaxf(__fdividef(t.m2, t.n), 0.f) + eps);
-  normalize<T, kVec, ACT, true>(data, y + (long long)g * L + lo, lo, n, S, nullptr, nullptr,
-                                tab, q0, t.mean, rstd);
+  if (kCL)
+    normalize_cl<T, kVec, ACT>(data, y + (long long)g * L + lo, lo, n, cpg, tab, t.mean, rstd);
+  else
+    normalize<T, kVec, ACT, true>(data, y + (long long)g * L + lo, lo, n, S, nullptr, nullptr,
+                                  tab, q0, t.mean, rstd);
+}
+
+template <typename T, bool kVec, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_cluster(const T* __restrict__ x, const float* __restrict__ gamma,
+           const float* __restrict__ beta, T* __restrict__ y, int L, int S, int G, int cpg,
+           int slice, float eps) {
+  cluster_body<T, kVec, ACT, false>(x, gamma, beta, y, L, S, G, cpg, slice, eps);
+}
+
+// the cluster path on channels-last x at G = 1
+template <typename T, bool kVec, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
+gn_cluster_cl(const T* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, T* __restrict__ y, int L, int S, int C, int slice,
+              float eps) {
+  cluster_body<T, kVec, ACT, true>(x, gamma, beta, y, L, S, 1, C, slice, eps);
 }
 
 // Path split, launch 1: grid (chunks, groups). Block (c, g) holds elements
@@ -483,10 +583,165 @@ gn_apply(const T* __restrict__ x, const float* __restrict__ gamma,
                                  gamma + c0, beta + c0, nullptr, 0, stat[0], stat[1]);
 }
 
+// ------------------------------------------------ channels-last, path rows
+// x (N, S, C) with C = G * cpg; grid (ranges, N). Block (p, s) takes rows
+// [p * rows, min(S, (p + 1) * rows)) of sample s. Thread t keeps channel
+// vector t % (C / V) of rows t / (C / V), + rpi, ... (rpi = kThreads / (C / V);
+// threads past rpi * C / V idle). V = 16 bytes of T (kVec) or 1 element.
+
+// must equal ops/cuda/groupnorm_act.py::rows_smem: gn_partial_cl's (s1, s2)
+// of each (row lane, channel), then of each channel; gn_apply_cl's G
+// (mean, rstd) pairs fit in it
+constexpr long long rows_smem(int C, int V) {
+  return round16(8LL * (kThreads / (C / V)) * C) + round16(8LL * C);
+}
+
+template <typename T, int V> __device__ __forceinline__ void load_n(const T* p, float (&e)[V]) {
+  if constexpr (V == 1) e[0] = to_f32(*p);
+  else load_vec(p, e);
+}
+template <typename T, int V> __device__ __forceinline__ void store_n(T* p, const float (&e)[V]) {
+  if constexpr (V == 1) from_f32(e[0], p);
+  else store_vec(p, e);
+}
+
+constexpr int kRowsUnroll = 4;  // loads in flight a thread
+
+// launch 1: each group's (count, mean, M2) over the block's rows, to
+// partials[((s * G + g) * ranges + p) * 3]
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_partial_cl(const T* __restrict__ x, float* __restrict__ partials, int S, int G, int cpg,
+              int rows) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int C = G * cpg, cv = C / V, rpi = kThreads / cv;
+  float2* lanes = reinterpret_cast<float2*>(smem);                           // [rpi][C]
+  float2* chan = reinterpret_cast<float2*>(smem + round16(8LL * rpi * C));   // [C]
+  const int s = blockIdx.y, lo = blockIdx.x * rows, hi = min(S, lo + rows);
+  const T* xs = x + (long long)s * S * C;
+  const int v = threadIdx.x % cv, r0 = threadIdx.x / cv;
+  if (r0 < rpi) {
+    float sh[V], s1[V], s2[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      sh[j] = to_f32(xs[(long long)lo * C + (v * V + j) / cpg * cpg]);
+      s1[j] = s2[j] = 0.f;
+    }
+    int r = lo + r0;
+    for (; r + (kRowsUnroll - 1) * rpi < hi; r += kRowsUnroll * rpi) {
+      float e[kRowsUnroll][V];
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u)
+        load_n<T, V>(xs + (long long)(r + u * rpi) * C + v * V, e[u]);
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float t = e[u][j] - sh[j];
+          s1[j] += t;
+          s2[j] += t * t;
+        }
+    }
+    for (; r < hi; r += rpi) {
+      float e[V];
+      load_n<T, V>(xs + (long long)r * C + v * V, e);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float t = e[j] - sh[j];
+        s1[j] += t;
+        s2[j] += t * t;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) lanes[r0 * C + v * V + j] = make_float2(s1[j], s2[j]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {  // each channel over the row lanes
+    float a = 0.f, b = 0.f;
+    for (int l = 0; l < rpi; ++l) {
+      const float2 p = lanes[l * C + c];
+      a += p.x;
+      b += p.y;
+    }
+    chan[c] = make_float2(a, b);
+  }
+  __syncthreads();
+  const float n = (float)(hi - lo) * cpg;
+  for (int g = threadIdx.x; g < G; g += kThreads) {  // each group over its channels
+    float a = 0.f, b = 0.f;
+    for (int c = g * cpg; c < (g + 1) * cpg; ++c) {
+      a += chan[c].x;
+      b += chan[c].y;
+    }
+    const float m = __fdividef(a, n);
+    float* out = partials + (((long long)s * G + g) * gridDim.x + blockIdx.x) * 3;
+    out[0] = n;
+    out[1] = to_f32(xs[(long long)lo * C + g * cpg]) + m;
+    out[2] = fmaxf(b - a * m, 0.f);
+  }
+}
+
+// launch 2: each warp merges the partials of groups warp, warp + kWarps, ...
+// (lane l those of ranges l, l + 32, ..., then the lanes by xor shuffles;
+// the same statistics in every block of the sample); then the block
+// normalizes its rows
+template <typename T, int V, int ACT>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_apply_cl(const T* __restrict__ x, const float* __restrict__ gamma,
+            const float* __restrict__ beta, const float* __restrict__ partials,
+            T* __restrict__ y, int S, int G, int cpg, int rows, float eps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float2* stat = reinterpret_cast<float2*>(smem);  // [G] (mean, rstd)
+  const int C = G * cpg, cv = C / V, rpi = kThreads / cv;
+  const int s = blockIdx.y, lo = blockIdx.x * rows, hi = min(S, lo + rows);
+  const int lane = threadIdx.x & 31, nr = gridDim.x;
+  for (int g = threadIdx.x >> 5; g < G; g += kWarps) {
+    const float* p = partials + ((long long)s * G + g) * nr * 3;
+    Stats t = {0.f, 0.f, 0.f};
+    for (int j = lane; j < nr; j += 32) t = merge(t, Stats{p[3 * j], p[3 * j + 1], p[3 * j + 2]});
+    t = warp_merge(t);
+    if (lane == 0) stat[g] = make_float2(t.mean, rsqrtf(fmaxf(t.m2 / t.n, 0.f) + eps));
+  }
+  __syncthreads();
+  const int v = threadIdx.x % cv, r0 = threadIdx.x / cv;
+  if (r0 >= rpi) return;
+  float mean[V], a[V], b[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = v * V + j;
+    const float2 st = stat[c / cpg];
+    mean[j] = st.x;
+    a[j] = gamma[c] * st.y;
+    b[j] = beta[c];
+  }
+  const long long base = (long long)s * S * C + v * V;
+  int r = lo + r0;
+  for (; r + (kRowsUnroll - 1) * rpi < hi; r += kRowsUnroll * rpi) {
+    float e[kRowsUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kRowsUnroll; ++u)
+      load_n<T, V>(x + base + (long long)(r + u * rpi) * C, e[u]);
+#pragma unroll
+    for (int u = 0; u < kRowsUnroll; ++u) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) e[u][j] = activate<T, ACT>((e[u][j] - mean[j]) * a[j] + b[j]);
+      store_n<T, V>(y + base + (long long)(r + u * rpi) * C, e[u]);
+    }
+  }
+  for (; r < hi; r += rpi) {
+    float e[V];
+    load_n<T, V>(x + base + (long long)r * C, e);
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = activate<T, ACT>((e[j] - mean[j]) * a[j] + b[j]);
+    store_n<T, V>(y + base + (long long)r * C, e);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 // cfg[] of dm_groupnorm_act (ops/cuda/groupnorm_act.py _CFG, in this order)
-enum Cfg { kDtype, kVecCfg, kAct, kSplit, kK, kSlice, kSmem, kGridX, kGridY, kL, kS, kG, kCpg };
+enum Cfg { kDtype, kVecCfg, kAct, kSplit, kK, kSlice, kSmem, kGridX, kGridY, kL, kS, kG, kCpg,
+           kLayout };
 
 template <typename Kernel>
 cudaError_t allow(Kernel kernel, bool cluster) {
@@ -499,6 +754,7 @@ cudaError_t allow(Kernel kernel, bool cluster) {
 
 template <typename T, bool kVec>
 cudaError_t allow_variant() {
+  constexpr int V = kVec ? Vec<T>::N : 1;
   cudaError_t err = allow(gn_partial<T, kVec>, false);
   if (err == cudaSuccess) err = allow(gn_apply<T, kVec, 0>, false);
   if (err == cudaSuccess) err = allow(gn_apply<T, kVec, 1>, false);
@@ -506,6 +762,13 @@ cudaError_t allow_variant() {
   if (err == cudaSuccess) err = allow(gn_cluster<T, kVec, 0>, true);
   if (err == cudaSuccess) err = allow(gn_cluster<T, kVec, 1>, true);
   if (err == cudaSuccess) err = allow(gn_cluster<T, kVec, 2>, true);
+  if (err == cudaSuccess) err = allow(gn_cluster_cl<T, kVec, 0>, true);
+  if (err == cudaSuccess) err = allow(gn_cluster_cl<T, kVec, 1>, true);
+  if (err == cudaSuccess) err = allow(gn_cluster_cl<T, kVec, 2>, true);
+  if (err == cudaSuccess) err = allow(gn_partial_cl<T, V>, false);
+  if (err == cudaSuccess) err = allow(gn_apply_cl<T, V, 0>, false);
+  if (err == cudaSuccess) err = allow(gn_apply_cl<T, V, 1>, false);
+  if (err == cudaSuccess) err = allow(gn_apply_cl<T, V, 2>, false);
   return err;
 }
 
@@ -542,6 +805,42 @@ cudaLaunchConfig_t cluster_config(int grid, int k, int smem, cudaStream_t s,
   return cfg;
 }
 
+// channels-last x (N, S, C): path cluster at G = 1 (split 0), else rows
+template <typename T, bool kVec, int ACT>
+cudaError_t launch_cl(const int* cfg, const T* x, const float* gamma, const float* beta, T* y,
+                      float* partials, float eps, cudaStream_t s) {
+  constexpr int V = kVec ? Vec<T>::N : 1;
+  const int k = cfg[kK], rows = cfg[kSlice], smem = cfg[kSmem], gx = cfg[kGridX],
+            gy = cfg[kGridY], L = cfg[kL], S = cfg[kS], G = cfg[kG], cpg = cfg[kCpg];
+  const long long C = (long long)G * cpg;
+  if (rows < 1 || S < 1 || G < 1 || cpg < 1 || gx < 1 || gy < 1 || C * S / G != L ||
+      smem > SMEM_LIMIT)
+    return cudaErrorInvalidValue;
+  if (kVec && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16))
+    return cudaErrorInvalidValue;
+  if (!cfg[kSplit]) {  // a sample a cluster, as gn_cluster (slice: elements a block)
+    if (G != 1 || k < 1 || k > kMaxCluster || (k & (k - 1)) || gx % k || gy != 1 ||
+        (long long)k * rows < L || smem != gn_smem(rows, sizeof(T), C) ||
+        (kVec && ((long long)rows * sizeof(T) % 16 || (long long)L * sizeof(T) % 16)))
+      return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t lc = cluster_config(gx, k, smem, s, &attr);
+    return cudaLaunchKernelEx(&lc, gn_cluster_cl<T, kVec, ACT>, x, gamma, beta, y, L, S, (int)C,
+                              rows, eps);
+  }
+  if (partials == nullptr || k != 1 || C / V > kThreads || C % V ||
+      smem != rows_smem(C, V) || (long long)gx * rows < S || (long long)(gx - 1) * rows >= S ||
+      (kVec && C * sizeof(T) % 16))
+    return cudaErrorInvalidValue;
+  const dim3 grid(gx, gy);
+  gn_partial_cl<T, V><<<grid, kThreads, smem, s>>>(x, partials, S, G, cpg, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_apply_cl<T, V, ACT><<<grid, kThreads, smem, s>>>(x, gamma, beta, partials, y, S, G, cpg,
+                                                     rows, eps);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kVec, int ACT>
 cudaError_t launch(const int* cfg, const void* xv, const float* gamma, const float* beta,
                    void* yv, float* partials, float eps, cudaStream_t s) {
@@ -549,6 +848,7 @@ cudaError_t launch(const int* cfg, const void* xv, const float* gamma, const flo
   T* y = static_cast<T*>(yv);
   const int k = cfg[kK], slice = cfg[kSlice], smem = cfg[kSmem], gx = cfg[kGridX],
             gy = cfg[kGridY], L = cfg[kL], S = cfg[kS], G = cfg[kG], cpg = cfg[kCpg];
+  if (cfg[kLayout]) return launch_cl<T, kVec, ACT>(cfg, x, gamma, beta, y, partials, eps, s);
   // the wrapper's plan against this file's layout and limits
   if (slice < 1 || L < 1 || S < 1 || G < 1 || cpg < 1 || gx < 1 || gy < 1 ||
       smem != gn_smem(slice, sizeof(T), cfg[kSplit] ? 0 : slice / S + 2) ||
@@ -616,9 +916,12 @@ extern "C" int dm_groupnorm_max_cluster(int* out) {
 
 // cfg: the launch's integers (Cfg order): dtype 0 = float32, 1 = bfloat16;
 // vec 1 = 16-byte rows (bulk copies, vectors); act 0 = none, 1 = silu,
-// 2 = relu; split; k; slice; smem; grid x, y; L; S = prod(spatial); G; C/G.
-// x, y: (N, C, S) contiguous; gamma, beta: float32 (C,); partials: float32
-// scratch of grid x * grid y * 3 on the split path, else unused.
+// 2 = relu; split; k; slice; smem; grid x, y; L; S = prod(spatial); G; C/G;
+// layout 0 = channels-first, 1 = channels-last.
+// x, y: (N, C, S) contiguous, or (N, S, C) contiguous (channels-last; split 1
+// is path rows, slice its rows a block); gamma, beta: float32 (C,); partials:
+// float32 scratch of grid x * grid y * 3 on the split path, of grid x * grid y
+// * G * 3 on path rows, else unused.
 extern "C" int dm_groupnorm_act(const int* cfg, const void* x, const void* gamma,
                                 const void* beta, void* y, void* partials, float eps,
                                 void* stream) {

@@ -9,7 +9,13 @@ Counterpart of the JAX ``diffusion/predictor.py`` on its inference paths:
     -> D3D decode, denormalize, trilinear back to S slices where the VAE
        compresses depth, mask -> (B,S,3,H,W).
 The public contract is channels-first, as in the JAX package; inside, the
-VAE sees (B, C, S, H, W) and the UNet (B*ld, C, lh, lw). Module names follow
+VAE sees (B, C, S, H, W) and the UNet (B*ld, C, lh, lw). On the card the
+samplers store them channels-last (``torch.channels_last_3d`` /
+``channels_last``, :meth:`LatentDiffusionPredictor.samples_channels_last`):
+cuDNN's convs then take and give NDHWC / NHWC without transposing, K1 reads
+and writes that layout, and the reshapes between the latent slices and the
+volume are views. The training step's ``forward`` / ``encode_target``, the
+int8 predictors and every CPU call stay channels-first. Module names follow
 the reference predictor state dict (``model.*``, ``vae.*``, ``scheduler.*``,
 ``normalizer.{input,output}.scale_factors``, ``distance_transform``).
 Each sampler is a host loop of UNet calls (one dispatch a step). The
@@ -37,6 +43,7 @@ from torch import nn
 from ..models.layers import int8_convs
 from ..models.unet import UNet
 from ..models.vae import REFERENCE_FEATURES, DualBranchVAE
+from ..ops.basic import to_channels_last
 from ..ops.distance import distance_transform_edt
 from ..ops.normalizer import MaxNormalizer
 from ..ops.resize import interpolate_bilinear, interpolate_trilinear
@@ -180,19 +187,32 @@ class LatentDiffusionPredictor(nn.Module):
             img_flat = distance_transform_edt(img_flat[:, 0])[:, None]
         return self.normalizer["input"].normalize(img_flat, channel_axis=1)
 
+    def samples_channels_last(self) -> bool:
+        """Whether the samplers store their activations channels-last: on the
+        card, where cuDNN's convs run NHWC / NDHWC and K1 reads that layout,
+        unless a network's convs run in int8: K4 writes channels-first, so an
+        int8 predictor stays channels-first throughout."""
+        return self.device.type == "cuda" and not (self.vae_int8 or self.unet_int8)
+
     def prepare_conditioning(self, img: torch.Tensor, velocity_2d: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """img (B,S,1,H,W), velocity_2d (B,S,3,H,W) ->
         z_cond (B*ld, latent, lh, lw), m_cond (B*ld, 1, lh, lw), float32,
-        with ld = S // vae_depth_factor."""
+        with ld = S // vae_depth_factor; channels-first."""
+        return self._conditioning(img, velocity_2d, channels_last=False)
+
+    def _conditioning(self, img, velocity_2d, channels_last: bool):
+        """:meth:`prepare_conditioning`, channels-last where ``channels_last``:
+        E2D's input cast and laid out in one copy, z_cond the E2D output's view."""
         b, s = img.shape[0], velocity_2d.shape[1]
         h, w = img.shape[-2], img.shape[-1]
         lh, lw, ld = h // 4, w // 4, s // self.vae_depth_factor
 
-        v2d = self.normalizer["output"].normalize(velocity_2d, channel_axis=2)
+        v2d = self.normalizer["output"].normalize(velocity_2d, channel_axis=2).transpose(1, 2)
+        v2d = to_channels_last(v2d, self.compute_dtype) if channels_last \
+            else v2d.to(self.compute_dtype)
         with self._int8(self.vae_int8):
-            z_cond, _ = self.vae.encode_2d_deterministic(
-                v2d.transpose(1, 2).to(self.compute_dtype))    # (B, C, ld, lh, lw)
+            z_cond, _ = self.vae.encode_2d_deterministic(v2d)    # (B, C, ld, lh, lw)
         if z_cond.shape[2] != ld:
             raise ValueError(
                 f"vae_depth_factor={self.vae_depth_factor} implies latent depth {ld}, but "
@@ -206,6 +226,8 @@ class LatentDiffusionPredictor(nn.Module):
             feats = interpolate_trilinear(feats.reshape(b, s, 1, lh, lw).transpose(1, 2),
                                           ld, lh, lw)            # (B, 1, ld, lh, lw)
             feats = feats.transpose(1, 2).reshape(b * ld, 1, lh, lw)
+        if channels_last:
+            return to_channels_last(z_cond), to_channels_last(feats)
         return z_cond, feats
 
     def _unet_eps(self, x, z_cond, m_cond, t):
@@ -270,13 +292,18 @@ class LatentDiffusionPredictor(nn.Module):
         return torch.randn(shape, generator=generator, device=generator.device).to(self.device)
 
     def _setup_sampling(self, img, velocity_2d, noise, generator):
-        """Shared sampler preamble: conditioning and initial latents."""
+        """Shared sampler preamble: conditioning and initial latents, in the
+        samplers' layout (:meth:`samples_channels_last`)."""
         with span("sampler.prepare"):
             img = img.to(self.device, torch.float32)
             velocity_2d = velocity_2d.to(self.device, torch.float32)
-            z_cond, m_cond = self.prepare_conditioning(img, velocity_2d)
-            x = self._init_latent_noise(z_cond.shape, noise, generator)
+            z_cond, m_cond = self._conditioning(img, velocity_2d, self.samples_channels_last())
+            x = self._layout(self._init_latent_noise(z_cond.shape, noise, generator))
         return img, x, z_cond, m_cond
+
+    def _layout(self, x: torch.Tensor) -> torch.Tensor:
+        """x in the samplers' layout (fresh noise is drawn channels-first)."""
+        return to_channels_last(x) if self.samples_channels_last() else x
 
     def _t(self, x: torch.Tensor, t: int) -> torch.Tensor:
         return torch.full((x.shape[0],), int(t), dtype=torch.int64, device=x.device)
@@ -291,8 +318,8 @@ class LatentDiffusionPredictor(nn.Module):
                 eps = self._unet_eps(x, z_cond, m_cond, t_batch)
                 step_noise = None
                 if eta > 0:
-                    step_noise = torch.randn(x.shape, generator=generator,
-                                             device=generator.device).to(x.device)
+                    step_noise = self._layout(torch.randn(x.shape, generator=generator,
+                                                          device=generator.device).to(x.device))
                 x = self.scheduler.ddim_sample(eps, x, t_batch, int(t_prev), eta=eta,
                                                noise=step_noise, clip_range=CLIP)
         return x
@@ -309,10 +336,10 @@ class LatentDiffusionPredictor(nn.Module):
                 t_batch = self._t(x, t)
                 eps = self._unet_eps(x, z_cond, m_cond, t_batch)
                 if step_noise is not None:
-                    z = step_noise[i]
+                    z = self._layout(step_noise[i])
                 else:
-                    z = torch.randn(x.shape, generator=generator,
-                                    device=generator.device).to(x.device)
+                    z = self._layout(torch.randn(x.shape, generator=generator,
+                                                 device=generator.device).to(x.device))
                 x = self.scheduler.p_sample(eps, x, t_batch, z, clip_denoised=True,
                                             clip_range=CLIP)
         return x
@@ -343,7 +370,9 @@ class LatentDiffusionPredictor(nn.Module):
         return x
 
     def _decode_and_finish(self, x, img):
-        """Latents (B*ld, C, lh, lw) -> masked velocity (B, S, 3, H, W)."""
+        """Latents (B*ld, C, lh, lw) -> masked velocity (B, S, 3, H, W); on
+        channels-last latents D3D's input is their view, and the output is
+        made contiguous."""
         with span("sampler.decode"):
             b, s, h, w = img.shape[0], img.shape[1], img.shape[-2], img.shape[-1]
             ld = x.shape[0] // b
@@ -353,7 +382,8 @@ class LatentDiffusionPredictor(nn.Module):
             vel = self.normalizer["output"].inverse(vel, channel_axis=1)
             if ld != s:
                 vel = interpolate_trilinear(vel, s, h, w)
-            return vel.transpose(1, 2) * img                            # mask over C
+            out = vel.transpose(1, 2) * img                             # mask over C
+            return out.contiguous() if self.samples_channels_last() else out
 
     @torch.inference_mode()
     def predict(self, img: torch.Tensor, velocity_2d: torch.Tensor, *,

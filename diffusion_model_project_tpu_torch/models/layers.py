@@ -2,7 +2,11 @@
 
 Counterpart of the JAX ``models/layers.py``. Parameters are kept in float32
 and cast to the input's dtype at each call, as the JAX layers do, so the
-compute dtype touches only conv and matmul compute. GroupNorm(+act) and
+compute dtype touches only conv and matmul compute. Each layer gives its
+output in its input's layout: on channels-last input (the samplers' on the
+card) a conv's weight cast writes the weight channels-last too, and a
+padding mode other than zeros pads the (N, H, W, C) view, so that cuDNN
+transposes nothing. GroupNorm(+act) and
 self-attention go through the K1/K2 wrappers, which launch the hand-written
 kernels on CUDA tensors and take the plain versions on CPU tensors. Inside
 ``train_trace()`` (the training steps) a call that needs a gradient takes the
@@ -23,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multihead_attention
-from ..ops.basic import activation_function, group_norm
+from ..ops.basic import activation_function, group_norm, memory_format
 from ..ops.cuda.attention import fused_attention
 from ..ops.cuda.groupnorm_act import groupnorm_act
 from ..ops.quant import int8_conv, use_float_path
@@ -103,12 +107,34 @@ def _conv_int8(conv, x: torch.Tensor, extra_pad=None) -> torch.Tensor:
     if extra_pad is not None:
         pads = [(a + c, b + d) for (a, b), (c, d) in zip(pads, extra_pad)]
     if conv.padding_mode != "zeros" and any(p != (0, 0) for p in pads):
-        x = F.pad(x, [v for lo_hi in reversed(pads) for v in lo_hi], mode=conv.padding_mode)
+        x = _pad(x, [v for lo_hi in reversed(pads) for v in lo_hi], conv.padding_mode)
         pads = [(0, 0)] * len(pads)
-    out = int8_conv(x, conv.weight, conv.stride, pads, x.dtype)
+    out = _in_layout(int8_conv(x, conv.weight, conv.stride, pads, x.dtype), memory_format(x))
     if conv.bias is None:
         return out
     return out + conv.bias.to(out.dtype).reshape((-1,) + (1,) * (out.ndim - 2))
+
+
+def _pad(x: torch.Tensor, pad: Sequence[int], mode: str) -> torch.Tensor:
+    """``F.pad(x, pad, mode)`` in x's layout. On channels-last 4-D x the
+    pad runs on the (N, H, W, C) view with the channels unpadded (CUDA's
+    reflection and replication pads of 4-D x return channels-first)."""
+    if x.dim() != 4 or memory_format(x) == torch.contiguous_format:
+        return F.pad(x, pad, mode=mode)
+    return F.pad(x.permute(0, 2, 3, 1), (0, 0, *pad), mode=mode).permute(0, 3, 1, 2)
+
+
+def _weight(w: torch.Tensor, fmt: torch.memory_format, dtype: torch.dtype) -> torch.Tensor:
+    """A conv's weight cast to ``dtype``, laid out as ``fmt`` in the same copy."""
+    return w.to(dtype, memory_format=fmt)
+
+
+def _in_layout(out: torch.Tensor, fmt: torch.memory_format) -> torch.Tensor:
+    """A conv's output in its input's layout ``fmt``: cuDNN's float32 and
+    bf16 convs give it; float64 ones (and the CPU's 3-D ones) do not."""
+    if fmt == torch.contiguous_format or out.is_contiguous(memory_format=fmt):
+        return out
+    return out.contiguous(memory_format=fmt)
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -121,7 +147,12 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if routes_int8(self):
             return _conv_int8(self, x)
-        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        fmt = memory_format(x)
+        w, b = _weight(self.weight, fmt, x.dtype), _cast(self.bias, x.dtype)
+        pad = self.padding
+        if self.padding_mode != "zeros":
+            x, pad = _pad(x, self._reversed_padding_repeated_twice, self.padding_mode), 0
+        return _in_layout(F.conv2d(x, w, b, self.stride, pad, self.dilation, self.groups), fmt)
 
 
 class Conv3d(nn.Conv3d):
@@ -143,7 +174,9 @@ class Conv3d(nn.Conv3d):
             return _conv_int8(self, x, self.extra_pad_pairs)
         if self.extra_pad is not None:
             x = F.pad(x, self.extra_pad)
-        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        fmt = memory_format(x)
+        return _in_layout(self._conv_forward(x, _weight(self.weight, fmt, x.dtype),
+                                             _cast(self.bias, x.dtype)), fmt)
 
 
 class ConvTranspose2x2(nn.ConvTranspose2d):
@@ -153,7 +186,9 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
         super().__init__(in_channels, out_channels, 2, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype), stride=2)
+        fmt = memory_format(x)
+        return _in_layout(F.conv_transpose2d(x, _weight(self.weight, fmt, x.dtype),
+                                             _cast(self.bias, x.dtype), stride=2), fmt)
 
 
 class Linear(nn.Linear):

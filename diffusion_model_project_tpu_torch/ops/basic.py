@@ -2,7 +2,9 @@
 
 Counterpart of ``diffusion_model_project_tpu/ops/basic.py``. 2D feature maps
 are ``(N, C, H, W)``, 3D volumes ``(N, C, D, H, W)``, so one GroupNorm group
-is one contiguous span of ``(C/G) * prod(spatial)`` elements.
+is one contiguous span of ``(C/G) * prod(spatial)`` elements. The samplers
+store them channels-last on the card (:func:`to_channels_last`); every op
+here gives its output in its input's layout.
 """
 from __future__ import annotations
 
@@ -43,6 +45,26 @@ def activation_function(name: Optional[str]) -> Callable[[torch.Tensor], torch.T
         raise NotImplementedError(f"Unknown activation: {name!r}")
 
 
+def memory_format(x: torch.Tensor) -> torch.memory_format:
+    """x's layout: ``torch.channels_last`` / ``channels_last_3d`` where x is
+    stored so and is not also contiguous, else ``torch.contiguous_format``."""
+    if x.dim() in (4, 5) and not x.is_contiguous():
+        fmt = torch.channels_last if x.dim() == 4 else torch.channels_last_3d
+        if x.is_contiguous(memory_format=fmt):
+            return fmt
+    return torch.contiguous_format
+
+
+def to_channels_last(x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (N, C, H, W) or (N, C, D, H, W) in ``dtype`` (default x's), stored
+    channels-last and dense, with channel stride 1 also where the two layouts
+    coincide (C = 1), so that ``torch.cat`` along the channels keeps the
+    layout. A cast and a layout change are one copy; x itself where it is
+    stored so already."""
+    fmt = torch.channels_last if x.dim() == 4 else torch.channels_last_3d
+    return x.to(dtype or x.dtype, memory_format=fmt).contiguous(memory_format=fmt)
+
+
 def group_norm(
     x: torch.Tensor,
     gamma: torch.Tensor,
@@ -56,12 +78,12 @@ def group_norm(
     Statistics per (sample, group) in float32. ``two_pass=False`` is the
     inference form (sum and sum of squares in one read, variance clamped at
     0); ``two_pass=True`` is the robust mean-then-E[(x-mean)^2] form used for
-    training. Output is in the input dtype.
+    training. Output is in the input dtype and layout.
     """
     n, c = x.shape[0], x.shape[1]
     if c % num_groups != 0:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    xf = x.reshape(n, num_groups, -1).float()
+    xf = x.contiguous().reshape(n, num_groups, -1).float()  # channels-first order
     if two_pass:
         mean = xf.mean(dim=2)
         var = (xf - mean[..., None]).square().mean(dim=2)
@@ -72,8 +94,9 @@ def group_norm(
     scale = torch.rsqrt(var + eps)
     out = ((xf - mean[..., None]) * scale[..., None]).reshape(x.shape)
     shape = (1, c) + (1,) * (x.ndim - 2)
-    out = out * gamma.float().reshape(shape) + beta.float().reshape(shape)
-    return out.to(x.dtype)
+    out = (out * gamma.float().reshape(shape) + beta.float().reshape(shape)).to(x.dtype)
+    fmt = memory_format(x)
+    return out if fmt == torch.contiguous_format else out.contiguous(memory_format=fmt)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .basic import memory_format
+
 
 def _resize_axis_linear(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
     """1D linear resize along ``dim`` with align_corners=False, no antialias."""
@@ -44,5 +46,15 @@ def interpolate_trilinear(x: torch.Tensor, out_d: int, out_h: int, out_w: int) -
 
 
 def upsample_nearest_hw(x: torch.Tensor) -> torch.Tensor:
-    """Nearest 2x upsample of H and W only, on ``(N, C, D, H, W)``."""
-    return x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
+    """Nearest 2x upsample of H and W only, on ``(N, C, D, H, W)``, in x's
+    layout. Channels-last x is written in one copy into a (.., H, 2, W, 2)
+    view of the output (``repeat_interleave`` returns channels-first)."""
+    fmt = memory_format(x)
+    if fmt == torch.contiguous_format:
+        return x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
+    n, c, d, h, w = x.shape
+    out = torch.empty((n, c, d, 2 * h, 2 * w), dtype=x.dtype, device=x.device,
+                      memory_format=fmt)
+    out.view(n, c, d, h, 2, w, 2).copy_(x[:, :, :, :, None, :, None].expand(
+        n, c, d, h, 2, w, 2))
+    return out

@@ -161,6 +161,186 @@ def test_groupnorm_act_launches_the_plans_kernels(gen, shape, groups):
     assert sum("gn_" in n for n in names) == p.kernels
 
 
+# ------------------------------------------------ K1 on channels-last x
+
+def _k1_cl_check(gen, shape, groups, act, dtype, tol, mean=0.0):
+    """K1 on channels-last x against its plain version: y channels-last, one
+    launch counted on both counters, the plan's path by G."""
+    from diffusion_model_project_tpu_torch.ops.basic import to_channels_last
+
+    x, w, b = _k1_inputs(gen, shape, torch.float32, mean)
+    x = to_channels_last((x * 2 + 0.5).to(dtype))
+    p = k1.launch_plan(x, groups, act)
+    assert p.channels_last and p.kernels == (1 if p.path == "cluster" else 2)
+    before = (k1.LAUNCHES, k1.LAUNCHES_CHANNELS_LAST)
+    got = k1.groupnorm_act(x, w, b, groups, act)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k1.LAUNCHES_CHANNELS_LAST) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert k1.is_channels_last(got) and got.stride() == x.stride()
+    assert _rel_err(got, k1.groupnorm_act_plain(x.float(), w, b, groups, act)) <= tol
+    return p
+
+
+def _published_pairs():
+    from diffusion_model_project_tpu_torch.scripts import k1_device_time
+
+    return [(s, g, a) for s, g, a, _ in k1_device_time.pairs(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("shape,groups,act", _published_pairs(),
+                         ids=[f"{'x'.join(map(str, s))}-G{g}-{a or 'none'}"
+                              for s, g, a in _published_pairs()])
+def test_groupnorm_act_channels_last_at_the_published_pairs(gen, dtype, tol, shape, groups, act):
+    p = _k1_cl_check(gen, shape, groups, act, dtype, tol)
+    assert p.path == ("cluster" if groups == 1 else "rows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("act", ["", "silu", "relu"])
+@pytest.mark.parametrize("shape,groups,path", [
+    ((22, 64, 64, 64), 1, "cluster"),     # UNet level 1
+    ((2, 128, 3, 40, 40), 32, "rows"),    # VAE GN(32), 4 channels a group
+    ((2, 12, 5, 8), 1, "cluster"),        # 16-byte vectors that straddle rows of C (bf16)
+    ((2, 20, 3, 5, 7), 4, "rows"),        # rows off 16 bytes (bf16): one element a thread
+    ((3, 96, 5, 7), 32, "rows"),          # 96 channels: 24 or 12 vectors a row
+    ((2, 64, 256, 256), 1, "rows"),       # a sample past any cluster
+])
+def test_groupnorm_act_channels_last_each_activation(gen, dtype, tol, act, shape, groups, path):
+    assert _k1_cl_check(gen, shape, groups, act, dtype, tol).path == path
+
+
+@pytest.mark.cuda
+def test_groupnorm_act_channels_last_misaligned_x(gen):
+    from diffusion_model_project_tpu_torch.ops.basic import to_channels_last
+
+    x, w, b = _k1_inputs(gen, (2, 64, 3, 8, 8))
+    x = to_channels_last(x)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:]
+    xm = buf.as_strided(x.shape, x.stride()).copy_(x)
+    assert k1.is_channels_last(xm) and not k1.launch_plan(xm, 32).aligned
+    got = k1.groupnorm_act(xm, w, b, 32, "silu")
+    assert _rel_err(got, k1.groupnorm_act_plain(xm.float(), w, b, 32, "silu")) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((2, 128, 3, 40, 40), 32), ((22, 64, 64, 64), 1)])
+def test_groupnorm_act_channels_last_float32_large_mean(gen, shape, groups):
+    import torch.nn.functional as F
+
+    from diffusion_model_project_tpu_torch.ops.basic import to_channels_last
+
+    x, w, b = _k1_inputs(gen, shape, torch.float32, mean=50.0)
+    got = k1.groupnorm_act(to_channels_last(x), w, b, groups, "silu")
+    ref = F.silu(F.group_norm(x.double(), groups, w.double(), b.double(), eps=1e-5))
+    assert ((got.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((22, 64, 64, 64), 1), ((2, 128, 11, 256, 256), 32)])
+def test_groupnorm_act_channels_last_launches_the_plans_kernels(gen, shape, groups):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_project_tpu_torch.ops.basic import to_channels_last
+
+    x, w, b = _k1_inputs(gen, shape)
+    x = to_channels_last(x)
+    p = k1.launch_plan(x, groups, "silu")
+    k1.groupnorm_act(x, w, b, groups, "silu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        k1.groupnorm_act(x, w, b, groups, "silu")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k1_names = [n for n in names if "::gn_cluster" in n or "::gn_partial" in n
+                or "::gn_apply" in n]
+    assert len(k1_names) == p.kernels == (1 if groups == 1 else 2)
+    assert all("_cl<" in n for n in k1_names)
+
+
+@pytest.mark.cuda
+def test_sampler_launches_k1_on_channels_last_x_and_training_does_not(gen):
+    """A float sampler call on the card launches every K1 call on
+    channels-last x; a train step (its frozen encodes) none."""
+    from diffusion_model_project_tpu_torch.training import steps
+
+    pred = _tiny_predictor().to("cuda")
+    img, vel, noise, _ = _tiny_inputs(hw=64)   # latents 16^2: no 1x1 map, which is both layouts
+    before = (k1.LAUNCHES, k1.LAUNCHES_CHANNELS_LAST)
+    out = pred.predict_ddim(img.cuda(), vel.cuda(), num_steps=2, noise=noise.cuda())
+    torch.cuda.synchronize()
+    launched = k1.LAUNCHES - before[0]
+    assert launched > 0 and k1.LAUNCHES_CHANNELS_LAST - before[1] == launched
+    assert out.is_contiguous() and torch.isfinite(out).all()
+    batch, noise, t = _tiny_batch(hw=64)
+    pred.model.requires_grad_(True)
+    step = steps.make_diffusion_train_step(_GradCapture(pred.model))
+    before = (k1.LAUNCHES, k1.LAUNCHES_CHANNELS_LAST)
+    step(pred, {k: v.cuda() for k, v in batch.items()}, noise=noise.cuda(), t=t.cuda())
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES > before[0] and k1.LAUNCHES_CHANNELS_LAST == before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["vae", "unet"])
+def test_int8_sampler_launches_k1_on_channels_first_x(gen, flag):
+    """An int8 predictor's sampler call stays channels-first (K4 writes that
+    layout): K1 launches, none on channels-last x."""
+    pred = _tiny_predictor().to("cuda")
+    pred = pred.with_vae_int8() if flag == "vae" else pred.with_unet_int8()
+    img, vel, noise, _ = _tiny_inputs(hw=64)
+    before = (k1.LAUNCHES, k1.LAUNCHES_CHANNELS_LAST)
+    out = pred.predict_ddim(img.cuda(), vel.cuda(), num_steps=2, noise=noise.cuda())
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES > before[0] and k1.LAUNCHES_CHANNELS_LAST == before[1]
+    assert out.shape == (1, 3, 3, 64, 64) and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["ddim", "dpm"])
+def test_published_sampler_loop_and_decode_transpose_nothing(gen, sampler):
+    """At the published config (bf16, B=2, 256^2 x 11) the UNet loop and D3D
+    launch no cuDNN layout kernel (nchwToNhwc / nhwcToNchw)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_project_tpu_torch.diffusion.predictor import LatentDiffusionPredictor
+    from diffusion_model_project_tpu_torch.utils.config import (PUBLISHED_LATENT_CHANNELS,
+                                                                PUBLISHED_UNET_KWARGS)
+
+    pred = LatentDiffusionPredictor.create(dict(PUBLISHED_UNET_KWARGS), seed=0,
+                                           latent_channels=PUBLISHED_LATENT_CHANNELS,
+                                           compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(9)
+    img = (torch.rand((2, 11, 1, 256, 256), generator=g) > 0.3).float().cuda()
+    vel = (torch.randn((2, 11, 3, 256, 256), generator=g) * 1e-2).cuda()
+    noise = torch.randn((22, PUBLISHED_LATENT_CHANNELS, 64, 64), generator=g).cuda()
+
+    def loop(x, z, m):
+        if sampler == "dpm":
+            return pred._dpm_loop(x, z, m, 2, 2)
+        return pred._ddim_loop(x, z, m, 2)
+
+    with torch.inference_mode():
+        pred.predict_ddim(img, vel, num_steps=2, noise=noise)   # warm: cuDNN's choices made
+        img_d, x, z, m = pred._setup_sampling(img, vel, noise, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = pred._decode_and_finish(loop(x, z, m), img_d)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    layout = sorted({n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n})
+    assert names and not layout, layout
+    assert out.shape == (2, 11, 3, 256, 256) and out.is_contiguous()
+    assert torch.isfinite(out).all()
+
+
 def _weight(w, layout):
     """A (K, N) weight from its (N, K) storage: the transposed view the module
     passes, or a row-major copy made before the call."""

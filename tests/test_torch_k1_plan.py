@@ -191,3 +191,144 @@ def test_emulated_reduction_matches_group_norm_statistics(shape, groups, elem_by
         assert n == p.group_len
         rm, rv = ref[g].mean().item(), ref[g].var(unbiased=False).item()
         assert abs(mean - rm) <= 1e-6 * abs(rm) and abs(m2 / n - rv) <= 1e-6 * rv
+
+
+# ------------------------------------------------------- channels-last
+
+def _plan_cl(shape, groups, mc, elem_bytes=2, aligned=True):
+    return k1.plan(shape[0], shape[1], math.prod(shape[2:]), groups, elem_bytes, aligned, mc,
+                   channels_last=True)
+
+
+def _ranges(p, spatial):
+    """The row ranges [lo, hi) of one sample that path rows' blocks take."""
+    return [(min(spatial, b * p.slice), min(spatial, (b + 1) * p.slice)) for b in range(p.grid[0])]
+
+
+@pytest.mark.parametrize("shape,groups,mc", CASES, ids=ids)
+def test_channels_last_plan_paths(shape, groups, mc):
+    p, cf = _plan_cl(shape, groups, mc), _plan(shape, groups, mc)
+    assert p.channels_last and not cf.channels_last
+    if groups == 1:
+        # a sample is one contiguous group: the UNet pairs keep their cluster and k
+        assert (p.path, p.k, p.kernels) == ("cluster", cf.k, 1) == (cf.path, cf.k, cf.kernels)
+    else:
+        # the VAE's GN(32): groups strided by C take the two-launch path
+        assert (p.path, p.k, p.kernels) == ("rows", 1, 2)
+
+
+@pytest.mark.parametrize("shape,groups,mc", CASES, ids=ids)
+def test_channels_last_plan_covers_every_element_once_and_fits_the_card(shape, groups, mc):
+    p = _plan_cl(shape, groups, mc)
+    n, c, spatial = shape[0], shape[1], math.prod(shape[2:])
+    assert p.aligned and p.group_len == c // groups * spatial
+    if p.path == "cluster":
+        spans = _spans(p)
+        assert spans[0][0] == 0 and spans[-1][1] == p.group_len == c * spatial
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert all(hi > lo for lo, hi in spans)
+        assert p.grid == (n * p.k, 1) and p.slice * 2 % 16 == 0
+        # every block keeps all C (gamma, beta) pairs
+        assert p.smem == k1.gn_smem(p.slice, 2, c) <= _sm90.SMEM_LIMIT
+        return
+    # each range of rows holds every channel of its rows: ranges cover [0, spatial) once
+    ranges = _ranges(p, spatial)
+    assert ranges[0][0] == 0 and ranges[-1][1] == spatial
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(hi > lo for lo, hi in ranges)
+    assert p.grid[1] == n and p.grid[0] * groups <= k1.MAX_PARTIALS
+    # a thread a 16-byte vector of channels, every vector of a row held
+    vec = 8
+    assert c % vec == 0 and c // vec <= k1.THREADS
+    lanes = k1.THREADS // (c // vec)
+    assert p.smem == k1.rows_smem(c, vec) == (-(-8 * lanes * c // 16) * 16
+                                              + -(-8 * c // 16) * 16) <= _sm90.SMEM_LIMIT
+    # about two waves of two blocks an SM
+    assert p.grid[0] * n <= k1.ROWS_BLOCKS + n
+
+
+def test_channels_last_plan_at_the_published_batch():
+    got = [(s, _plan_cl(s, g, 16)) for s, g, _, _ in pairs_mod.pairs(2)]
+    assert {(p.path, p.kernels) for s, p in got if len(s) == 5} == {("rows", 2)}
+    assert sum(p.kernels for _, p in got) == 14 + 2 * 5
+    # a G = 1 sample past a cluster takes path rows too
+    big = k1.plan(2, 64, 256 * 256, 1, 4, True, 16, channels_last=True)
+    assert (big.path, big.kernels, big.grid) == ("rows", 2, (264, 2))
+
+
+def test_channels_last_unaligned_rows_take_the_scalar_variant():
+    # rows of 24 bf16 channels are 48 bytes: 16-byte vectors; 20 channels are not
+    assert k1.plan(2, 24, 35, 8, 2, True, 16, channels_last=True).aligned
+    p = k1.plan(2, 20, 35, 4, 2, True, 16, channels_last=True)
+    assert not p.aligned and p.smem == k1.rows_smem(20, 1)
+    # an x that starts off a 16-byte boundary does too
+    assert not k1.plan(2, 64, 35, 32, 2, False, 16, channels_last=True).aligned
+    # a thread a channel: at most THREADS channels a row
+    with pytest.raises(ValueError, match="outside"):
+        k1.plan(2, 1024, 35, 32, 2, False, 16, channels_last=True)
+
+
+@pytest.mark.parametrize("make", [
+    lambda x: x.transpose(2, 3),                  # neither layout
+    lambda x: x[:, :, ::2],                       # strided
+    lambda x: x.permute(0, 2, 1, 3),              # channels in the middle
+])
+def test_channels_last_other_strides_are_refused(make):
+    x = torch.randn(2, 8, 6, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.is_channels_last(make(x))
+    assert not k1.is_channels_last(x)
+    assert k1.is_channels_last(x.contiguous(memory_format=torch.channels_last))
+    x5 = torch.randn(2, 8, 3, 6, 4)
+    assert k1.is_channels_last(x5.contiguous(memory_format=torch.channels_last_3d))
+    # contiguous in both layouts (C = 1): channels-first
+    assert not k1.is_channels_last(torch.randn(2, 1, 6, 4))
+
+
+def _rows_stats(xs, p, groups, vec):
+    """Path rows' reduction of one sample xs (spatial, C), in float32: each
+    range's partial (count, mean, M2) of each group, from per-channel sums of
+    x - shift down the row lanes (the shift the group's first element of the
+    range), then over the lanes, then over the group's channels; Chan's merge
+    over the ranges in their order."""
+    spatial, c = xs.shape
+    cpg, lanes = c // groups, k1.THREADS // (c // vec)
+    out = [(np.float32(0), np.float32(0), np.float32(0))] * groups
+    for lo, hi in _ranges(p, spatial):
+        rows = xs[lo:hi]
+        shift = np.repeat(rows[0, ::cpg], cpg)
+        t = rows - shift
+        pad = -len(t) % lanes
+        t = np.concatenate([t, np.zeros((pad, c), np.float32)]).reshape(-1, lanes, c)
+        s1 = t.sum(axis=0, dtype=np.float32).sum(axis=0, dtype=np.float32)
+        s2 = (t * t).sum(axis=0, dtype=np.float32).sum(axis=0, dtype=np.float32)
+        a = s1.reshape(groups, cpg).sum(axis=1, dtype=np.float32)
+        b = s2.reshape(groups, cpg).sum(axis=1, dtype=np.float32)
+        n = np.float32((hi - lo) * cpg)
+        m = a / n
+        part = [(n, np.float32(shift[g * cpg] + m[g]), np.float32(max(b[g] - a[g] * m[g], 0)))
+                for g in range(groups)]
+        out = [_merge(o, q) for o, q in zip(out, part)]
+    return out
+
+
+@pytest.mark.parametrize("shape,groups,elem_bytes,aligned", [
+    ((4, 256, 64, 64), 32, 4, True),      # four rows a lane, float32 vectors of 4
+    ((2, 64, 3, 8, 8), 32, 2, True),      # 3-D, bf16 vectors of 8
+    ((3, 96, 5, 7), 32, 4, False),        # one element a thread
+])
+def test_emulated_channels_last_reduction_matches_group_norm_statistics(shape, groups,
+                                                                         elem_bytes, aligned):
+    rng = np.random.default_rng(1)
+    x = (0.5 + rng.standard_normal(shape)).astype(np.float32)
+    n, c, spatial = shape[0], shape[1], math.prod(shape[2:])
+    p = k1.plan(n, c, spatial, groups, elem_bytes, aligned, 16, channels_last=True)
+    assert p.path == "rows" and p.aligned == aligned
+    vec = 16 // elem_bytes if aligned else 1
+    xcl = np.moveaxis(x.reshape(n, c, spatial), 1, 2)  # (n, spatial, C)
+    ref = torch.from_numpy(x).double().reshape(n, groups, -1)
+    for s in range(n):
+        for g, (cnt, mean, m2) in enumerate(_rows_stats(xcl[s], p, groups, vec)):
+            assert cnt == p.group_len
+            rm, rv = ref[s, g].mean().item(), ref[s, g].var(unbiased=False).item()
+            assert abs(mean - rm) <= 1e-6 * abs(rm) and abs(m2 / cnt - rv) <= 1e-6 * rv
